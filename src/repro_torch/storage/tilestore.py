@@ -1,0 +1,549 @@
+"""`TileStore`: the hybrid tile-classified column store (build and statistics half).
+
+The single source of truth for column data in the query engine.  Each
+column (a packed bitmap over the universe ``r``) is split into tiles of
+``tile_words`` 32-bit words and classified at build time:
+
+  * ``TILE_ZERO`` (0)  -- every word 0
+  * ``TILE_ONE``  (1)  -- every word 0xFFFFFFFF
+  * ``TILE_DIRTY`` (2) -- anything else
+  * ``TILE_RUN``  (3)  -- dirty, but a single 0/1 transition inside the
+    tile (one run boundary); a bit-level refinement computed lazily for
+    the planner's RUNCOUNT-style estimates.
+
+Dirty tiles additionally carry a **container kind**
+(``repro_torch.storage.containers``): low-popcount tiles are *sparse
+containers* (sorted uint16 bit positions), few-run tiles are *run
+containers* ((start, end) uint16 interval pairs), the rest are *dense
+containers* (the classic packed words), packed contiguously per column.
+
+Classification and statistics are host-side numpy over ``uint32`` words:
+this is the paper's "index build time" work that makes the planner
+data-aware without any per-query scanning.  The dense view that the dense
+backends read is an ``int32`` tensor on the store's device: ``from_packed``
+keeps the tensor it was given (``densify()`` hands it back and never
+re-uploads a reconstruction).
+
+Ported: construction, classification, container kinds and storage words,
+per-column and member-subset statistics, ``append`` / ``replace`` /
+``with_tile_words``, the dense view.  The store-wide packs, the cell and
+event gathers, tile updates, slicing and the snapshot constructor belong
+to the tile-skipping executor and are not ported yet (see ROADMAP.md).
+
+Stores are immutable: ``append`` / ``replace`` return a new ``TileStore``
+that shares nothing mutable with the old one, so stale references keep
+working (the property ``BitmapIndex.add_column`` relies on).  A store is
+hashable by identity and weak-referenceable (the plan memo keys on it).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.bitmaps import pack
+from repro_torch.device import resolve_device, to_numpy_u32, to_words
+
+from .containers import (
+    CONT_DENSE,
+    CONT_NONE,
+    CONT_RUN,
+    CONT_SPARSE,
+    compress_tiles,
+    containers_supported,
+    words_from_runs,
+    words_from_sparse,
+)
+
+__all__ = [
+    "TILE_ZERO",
+    "TILE_ONE",
+    "TILE_DIRTY",
+    "TILE_RUN",
+    "ColumnStats",
+    "MemberStats",
+    "TileStore",
+]
+
+TILE_ZERO, TILE_ONE, TILE_DIRTY, TILE_RUN = 0, 1, 2, 3
+
+
+def _signature_counts(cls: np.ndarray, *, return_inverse: bool = False):
+    """Distinct per-tile class signatures of ``cls`` ([members, n_tiles]).
+
+    Returns ``(signatures, counts)`` -- or ``(signatures, inverse)`` with
+    ``return_inverse`` (the tiled executor's grouping).  Equivalent to
+    ``np.unique(cls.T, axis=0)`` but via a void view over contiguous rows
+    -- axis-unique's lexsort of object rows dominated planner and dispatch
+    time on multi-thousand-tile stores."""
+    rows = np.ascontiguousarray(cls.T)
+    if rows.size == 0:
+        return rows, np.zeros(0, np.int64)
+    v = rows.view(np.dtype((np.void, rows.shape[1]))).ravel()
+    uniq, second = np.unique(
+        v, return_inverse=return_inverse, return_counts=not return_inverse
+    )
+    sigs = uniq.view(np.uint8).reshape(uniq.size, rows.shape[1])
+    return sigs, second
+
+
+if hasattr(np, "bitwise_count"):  # numpy >= 2.0
+    def _popcount_words(row: np.ndarray) -> int:
+        return int(np.bitwise_count(row).sum())
+else:  # byte-table fallback for numpy 1.x
+    _POP8 = np.array([bin(i).count("1") for i in range(256)], np.uint16)
+
+    def _popcount_words(row: np.ndarray) -> int:
+        return int(_POP8[row.view(np.uint8)].sum())
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnStats:
+    """Build-time statistics of one column."""
+
+    cardinality: int
+    density: float
+    runcount: int
+    n_dirty_tiles: int  # DIRTY + RUN
+    clean_fraction: float  # fraction of tiles that are ZERO/ONE
+
+
+@dataclasses.dataclass(frozen=True)
+class MemberStats:
+    """Aggregate statistics of a member subset, consumed by the planner."""
+
+    n: int
+    n_words: int
+    tile_words: int
+    clean_fraction: float  # over (member, tile) pairs
+    density: float  # mean member density
+    dirty_words: int  # words a DENSE dirty pack would store for the members
+    case3_tiles: int  # tiles where at least one member is dirty
+    #: distinct tile-class signatures over the subset, as
+    #: (tile_count, n_one, n_dirty) triples -- lets the planner price the
+    #: tiled executor's per-signature dispatch overhead without specializing
+    signatures: tuple = ()
+    #: (dense, sparse, run) container counts over the subset's dirty tiles
+    container_tiles: tuple = (0, 0, 0)
+    #: words actually stored for the subset's dirty tiles (compressed;
+    #: == dirty_words when every container is dense / containers are off)
+    compressed_words: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _Column:
+    """One classified column: per-tile word classes + container payloads.
+
+    Word-level classification (all-zero / all-one / dirty) is all that
+    execution and planning need and costs one vectorised comparison pass.
+    Dirty tiles are compressed into per-kind packs in tile order (see
+    ``repro_torch.storage.containers``); the bit-level metadata (exact runcount,
+    RUN tagging) still needs an 8x ``unpackbits`` expansion, so the store
+    computes it lazily on first access of ``classes`` / ``col_stats``.
+    """
+
+    classes: np.ndarray  # uint8 [n_tiles], word-level: ZERO/ONE/DIRTY only
+    kinds: np.ndarray  # uint8 [n_tiles], container kind (CONT_NONE clean)
+    dense: np.ndarray  # uint32 [n_dense, tile_words], tile order
+    spos: np.ndarray  # uint16 [sum p], sparse positions, tile order
+    soff: np.ndarray  # int64 [n_sparse + 1]
+    runs: np.ndarray  # uint16 [n_intervals, 2], (start, end), tile order
+    roff: np.ndarray  # int64 [n_run + 1], interval-count offsets
+    cardinality: int
+
+    def dirty_words_dense(self, tile_words: int) -> np.ndarray:
+        """EVERY dirty tile of this column densified, uint32[nd, tw]."""
+        dk = self.kinds[self.classes >= TILE_DIRTY]
+        out = np.empty((dk.size, tile_words), np.uint32)
+        out[dk == CONT_DENSE] = self.dense
+        if (dk == CONT_SPARSE).any():
+            out[dk == CONT_SPARSE] = words_from_sparse(
+                self.spos, self.soff, tile_words
+            )
+        if (dk == CONT_RUN).any():
+            out[dk == CONT_RUN] = words_from_runs(self.runs, self.roff, tile_words)
+        return out
+
+    def storage_words(self, tile_words: int) -> int:
+        """uint32-word-equivalents this column's containers occupy.
+
+        Sparse tiles are charged per-tile ``ceil(p/2)`` (positions do not
+        pool across tiles), matching ``TileStore.storage_words_cell`` --
+        so census / member-stats / footprint metrics all agree."""
+        sparse = int(((np.diff(self.soff) + 1) // 2).sum()) if len(self.soff) > 1 else 0
+        return self.dense.shape[0] * tile_words + sparse + len(self.runs)
+
+
+def _classify_column(row: np.ndarray, tile_words: int, *,
+                     containers: bool = True) -> _Column:
+    """Word-level classification + container compression of one padded
+    column (uint32[n_tiles * tile_words])."""
+    n_tiles = row.size // tile_words
+    tiles = row.reshape(n_tiles, tile_words)
+    all_zero = (tiles == 0).all(axis=1)
+    all_one = (tiles == 0xFFFFFFFF).all(axis=1)
+    classes = np.full(n_tiles, TILE_DIRTY, dtype=np.uint8)
+    classes[all_zero] = TILE_ZERO
+    classes[all_one] = TILE_ONE
+    dirty_mask = classes == TILE_DIRTY
+    ckinds, dense, spos, soff, runs, roff = compress_tiles(
+        tiles[dirty_mask], tile_words, containers=containers
+    )
+    kinds = np.zeros(n_tiles, np.uint8)
+    kinds[dirty_mask] = ckinds
+    return _Column(
+        classes=classes,
+        kinds=kinds,
+        dense=dense,
+        spos=spos,
+        soff=soff,
+        runs=runs,
+        roff=roff,
+        cardinality=_popcount_words(row),
+    )
+
+
+def _bit_stats(row: np.ndarray, classes: np.ndarray, tile_words: int, r: int):
+    """Bit-level pass over one padded column: (runcount, run_mask)."""
+    n_tiles = classes.size
+    bits = np.unpackbits(row.view(np.uint8), bitorder="little")
+    flips = bits[1:] != bits[:-1]
+    rc = int(flips[: max(r - 1, 0)].sum()) + 1
+    # transitions strictly inside each tile: positions [j*S, (j+1)*S - 2]
+    span = tile_words * 32
+    inner = np.concatenate([flips, [False]]).reshape(n_tiles, span)
+    inner_counts = inner[:, : span - 1].sum(axis=1)
+    run_mask = (classes >= TILE_DIRTY) & (inner_counts == 1)
+    return rc, run_mask
+
+
+class TileStore:
+    """Tile-classified columns: classes + per-column container payloads."""
+
+    def __init__(self, columns: list, *, tile_words: int, n_words: int, r: int,
+                 dense=None, containers: bool = True, device=None):
+        self._cols: tuple = tuple(columns)
+        self.tile_words = int(tile_words)
+        self.n_words = int(n_words)
+        self.r = int(r)
+        #: where the dense view lives (and where the dense backends run)
+        self.device = dense.device if dense is not None else resolve_device(device)
+        #: whether dirty tiles may be stored compressed (sparse/run);
+        #: False keeps the legacy all-dense layout, and tile spans beyond
+        #: uint16 positions force it off
+        self.containers = bool(containers) and containers_supported(tile_words)
+        self.n_tiles = (self.n_words + self.tile_words - 1) // self.tile_words
+        # word-level classes [N, n_tiles]
+        self._classes_word = (
+            np.stack([c.classes for c in self._cols])
+            if self._cols
+            else np.zeros((0, self.n_tiles), np.uint8)
+        )
+        self._kinds_cache: np.ndarray | None = None
+        self._dirty_np_cache: np.ndarray | None = None
+        self._dirty_index_cache: np.ndarray | None = None
+        self._storage_words_cell: np.ndarray | None = None
+        self._dense = dense  # optional cached int32[N, n_words] tensor on `device`
+        # bit-level metadata (RUN tags, runcounts): computed on first access
+        self._refined_classes: np.ndarray | None = None
+        self._col_stats: tuple | None = None
+        # member_stats memo: stores are immutable, so the aggregate (incl.
+        # the np.unique signature pass) per member subset never changes --
+        # planners hit this once per (shard, subset), not once per query
+        self._member_stats_cache: dict = {}
+
+    # -- legacy densified dirty surface ------------------------------------
+    def _assemble_dirty(self) -> None:
+        """EVERY dirty tile as a dense row (compressed tiles decompressed)
+        -- the densify-first consumers' view, assembled once on demand."""
+        if self._dirty_np_cache is not None:
+            return
+        counts = [int((c.classes >= TILE_DIRTY).sum()) for c in self._cols]
+        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        index = np.full((len(self._cols), self.n_tiles), -1, np.int64)
+        for i, c in enumerate(self._cols):
+            index[i, c.classes >= TILE_DIRTY] = offsets[i] + np.arange(counts[i])
+        self._dirty_index_cache = index
+        self._dirty_np_cache = (
+            np.concatenate(
+                [c.dirty_words_dense(self.tile_words) for c in self._cols]
+            )
+            if any(counts)
+            else np.zeros((0, self.tile_words), np.uint32)
+        )
+
+    @property
+    def dirty_index(self) -> np.ndarray:
+        """int64[N, n_tiles]: row of ``dirty`` per (column, tile), -1 clean."""
+        self._assemble_dirty()
+        return self._dirty_index_cache
+
+    @property
+    def _dirty_np(self) -> np.ndarray:
+        self._assemble_dirty()
+        return self._dirty_np_cache
+
+    # -- container surface -------------------------------------------------
+    @property
+    def container_kinds(self) -> np.ndarray:
+        """uint8[N, n_tiles]: CONT_NONE (clean) / CONT_DENSE / CONT_SPARSE /
+        CONT_RUN per (column, tile)."""
+        if self._kinds_cache is None:
+            self._kinds_cache = (
+                np.stack([c.kinds for c in self._cols])
+                if self._cols
+                else np.zeros((0, self.n_tiles), np.uint8)
+            )
+        return self._kinds_cache
+
+    @property
+    def storage_words_cell(self) -> np.ndarray:
+        """int32[N, n_tiles]: uint32-word-equivalents stored per (column,
+        tile) cell -- 0 clean, ``tile_words`` dense, ``ceil(p/2)`` sparse,
+        ``i`` run.  The planner's container-aware pricing input.  Computed
+        from each column's own offset tables (payloads are in tile order)."""
+        if self._storage_words_cell is None:
+            kinds = self.container_kinds
+            out = np.zeros(kinds.shape, np.int32)
+            out[kinds == CONT_DENSE] = self.tile_words
+            for i, c in enumerate(self._cols):
+                sp = c.kinds == CONT_SPARSE
+                if sp.any():
+                    out[i, sp] = (np.diff(c.soff) + 1) // 2
+                rn = c.kinds == CONT_RUN
+                if rn.any():
+                    out[i, rn] = np.diff(c.roff)
+            self._storage_words_cell = out
+        return self._storage_words_cell
+
+    def container_census(self, slots=None) -> dict:
+        """Per-kind tile counts + storage words of a member subset (default
+        all columns) -- the "what is this data stored as" report."""
+        idx = np.arange(self.n) if slots is None else np.asarray(list(slots))
+        kinds = self.container_kinds[idx]
+        cells = self.storage_words_cell[idx]
+        return {
+            "clean": int((kinds == CONT_NONE).sum()),
+            "dense": int((kinds == CONT_DENSE).sum()),
+            "sparse": int((kinds == CONT_SPARSE).sum()),
+            "run": int((kinds == CONT_RUN).sum()),
+            "storage_words": int(cells.sum()),
+            "dense_equiv_words": int((kinds > CONT_NONE).sum()) * self.tile_words,
+        }
+
+    def storage_words(self) -> int:
+        """Total uint32-word-equivalents the container packs occupy."""
+        return sum(c.storage_words(self.tile_words) for c in self._cols)
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def from_packed(cls, columns, *, tile_words: int = 64, r: int | None = None,
+                    containers: bool = True, device=None) -> "TileStore":
+        """Build from packed bitmaps int32[N, n_words] (a tensor, or numpy
+        ``uint32``).  The words are classified on the host; the tensor on
+        ``device`` is kept as the dense view."""
+        dev = to_words(columns, resolve_device(device))
+        arr = to_numpy_u32(dev)
+        if arr.ndim != 2:
+            raise ValueError(f"expected int32[N, n_words], got shape {arr.shape}")
+        n, nw = arr.shape
+        r = int(r) if r is not None else nw * 32
+        n_tiles = (nw + tile_words - 1) // tile_words
+        enabled = bool(containers) and containers_supported(tile_words)
+        tail = n_tiles * tile_words - nw
+        cols = [
+            _classify_column(np.pad(arr[i], (0, tail)) if tail else arr[i],
+                             tile_words, containers=enabled)
+            for i in range(n)
+        ]
+        return cls(cols, tile_words=tile_words, n_words=nw, r=r, dense=dev,
+                   containers=enabled)
+
+    @classmethod
+    def from_dense(cls, bits, *, tile_words: int = 64,
+                   containers: bool = True, device=None) -> "TileStore":
+        """Build from a dense boolean/int array [N, r]."""
+        dev = resolve_device(device)
+        if not isinstance(bits, torch.Tensor):
+            bits = np.asarray(bits)
+        return cls.from_packed(pack(bits, dev), tile_words=tile_words,
+                               r=bits.shape[-1], containers=containers, device=dev)
+
+    def _row_words(self, packed_row) -> torch.Tensor:
+        row = to_words(packed_row, self.device)
+        if tuple(row.shape) != (self.n_words,):
+            raise ValueError(f"expected shape ({self.n_words},), got {tuple(row.shape)}")
+        return row
+
+    def _classify_row(self, row: torch.Tensor) -> _Column:
+        padded = np.pad(to_numpy_u32(row),
+                        (0, self.n_tiles * self.tile_words - self.n_words))
+        return _classify_column(padded, self.tile_words,
+                                containers=self.containers)
+
+    def append(self, packed_row) -> "TileStore":
+        """New store with one more column; only the new column is classified
+        -- and compressed, so query results fed back as virtual columns are
+        stored in container form, not as dense words."""
+        row = self._row_words(packed_row)
+        col = self._classify_row(row)
+        dense = None
+        if self._dense is not None:
+            dense = torch.cat([self._dense, row[None]], dim=0)
+        return TileStore(list(self._cols) + [col], tile_words=self.tile_words,
+                         n_words=self.n_words, r=self.r, dense=dense,
+                         containers=self.containers, device=self.device)
+
+    def replace(self, i: int, packed_row) -> "TileStore":
+        """New store with column ``i`` swapped; only its tiles are reclassified
+        (the slot-mask update path: untouched columns keep their packs).  The
+        dense view is cloned before the row is written: the old store's view
+        stays as it was."""
+        row = self._row_words(packed_row)
+        col = self._classify_row(row)
+        cols = list(self._cols)
+        cols[int(i)] = col
+        dense = None
+        if self._dense is not None:
+            dense = self._dense.clone()
+            dense[int(i)] = row
+        return TileStore(cols, tile_words=self.tile_words, n_words=self.n_words,
+                         r=self.r, dense=dense, containers=self.containers,
+                         device=self.device)
+
+    def with_tile_words(self, tile_words: int) -> "TileStore":
+        """Reclassify the whole store at a different tile granularity."""
+        if tile_words == self.tile_words:
+            return self
+        return TileStore.from_packed(self.densify(), tile_words=tile_words,
+                                     r=self.r, containers=self.containers,
+                                     device=self.device)
+
+    # -- accessors ---------------------------------------------------------
+    @property
+    def n(self) -> int:
+        return len(self._cols)
+
+    @property
+    def classes_word(self) -> np.ndarray:
+        """Word-level classes (ZERO/ONE/DIRTY) -- all execution needs."""
+        return self._classes_word
+
+    @property
+    def classes(self) -> np.ndarray:
+        """Full classes incl. RUN tags (triggers the lazy bit-level pass)."""
+        self._bit_refine()
+        return self._refined_classes
+
+    @property
+    def col_stats(self) -> tuple:
+        """Per-column :class:`ColumnStats` (triggers the lazy bit pass)."""
+        self._bit_refine()
+        return self._col_stats
+
+    def _bit_refine(self) -> None:
+        if self._col_stats is not None:
+            return
+        padded = self._padded_host()
+        refined = self._classes_word.copy()
+        stats = []
+        for i, c in enumerate(self._cols):
+            rc, run_mask = _bit_stats(
+                padded[i], self._classes_word[i], self.tile_words, self.r
+            )
+            refined[i][run_mask] = TILE_RUN
+            n_dirty = int((self._classes_word[i] >= TILE_DIRTY).sum())
+            stats.append(
+                ColumnStats(
+                    cardinality=c.cardinality,
+                    density=c.cardinality / max(self.r, 1),
+                    runcount=rc,
+                    n_dirty_tiles=n_dirty,
+                    clean_fraction=1.0 - n_dirty / max(self.n_tiles, 1),
+                )
+            )
+        self._refined_classes = refined
+        self._col_stats = tuple(stats)
+
+    def _padded_host(self) -> np.ndarray:
+        """Host uint32[N, n_tiles * tile_words] reconstructed from tiles."""
+        out = np.zeros((self.n, self.n_tiles, self.tile_words), np.uint32)
+        out[self._classes_word == TILE_ONE] = 0xFFFFFFFF
+        out[self._classes_word >= TILE_DIRTY] = self._dirty_np
+        return out.reshape(self.n, -1)
+
+    @property
+    def cardinalities(self) -> tuple:
+        return tuple(c.cardinality for c in self._cols)
+
+    @property
+    def densities(self) -> tuple:
+        return tuple(c.cardinality / max(self.r, 1) for c in self._cols)
+
+    @property
+    def runcounts(self) -> tuple:
+        return tuple(s.runcount for s in self.col_stats)
+
+    @property
+    def clean_fraction(self) -> float:
+        """Fraction of (column, tile) pairs that are all-zero/all-one."""
+        if self._classes_word.size == 0:
+            return 1.0
+        return float((self._classes_word <= TILE_ONE).mean())
+
+    @property
+    def dirty_words(self) -> int:
+        """Words a dense dirty pack would hold (the legacy metric; see
+        :meth:`storage_words` for what the containers actually occupy)."""
+        return int((self._classes_word >= TILE_DIRTY).sum()) * self.tile_words
+
+    def densify(self) -> torch.Tensor:
+        """Dense int32[N, n_words] view on the store's device (cached) for
+        dense-path backends."""
+        if self._dense is None:
+            self._dense = to_words(
+                np.ascontiguousarray(self._padded_host()[:, : self.n_words]), self.device
+            )
+        return self._dense
+
+    def column(self, i: int) -> torch.Tensor:
+        return self.densify()[int(i)]
+
+    def member_stats(self, slots=None) -> MemberStats:
+        """Planner-facing aggregate over a member subset (default: all).
+        Cached per subset (the store is immutable)."""
+        key = None if slots is None else tuple(slots)
+        cached = self._member_stats_cache.get(key)
+        if cached is not None:
+            return cached
+        idx = np.arange(self.n) if slots is None else np.asarray(list(key))
+        if idx.size == 0:
+            return MemberStats(0, self.n_words, self.tile_words, 1.0, 0.0, 0, 0)
+        cls = self._classes_word[idx]
+        dirty_tiles = int((cls >= TILE_DIRTY).sum())
+        dens = [self._cols[i].cardinality / max(self.r, 1) for i in idx]
+        sigs, counts = _signature_counts(cls)
+        signatures = tuple(
+            (int(cnt), int((sig == TILE_ONE).sum()), int((sig >= TILE_DIRTY).sum()))
+            for sig, cnt in zip(sigs, counts)
+        )
+        kinds = self.container_kinds[idx]
+        stats = MemberStats(
+            n=int(idx.size),
+            n_words=self.n_words,
+            tile_words=self.tile_words,
+            clean_fraction=1.0 - dirty_tiles / max(cls.size, 1),
+            density=float(np.mean(dens)),
+            dirty_words=dirty_tiles * self.tile_words,
+            case3_tiles=int(((cls >= TILE_DIRTY).any(axis=0)).sum()),
+            signatures=signatures,
+            container_tiles=(
+                int((kinds == CONT_DENSE).sum()),
+                int((kinds == CONT_SPARSE).sum()),
+                int((kinds == CONT_RUN).sum()),
+            ),
+            compressed_words=int(self.storage_words_cell[idx].sum()),
+        )
+        self._member_stats_cache[key] = stats
+        return stats
