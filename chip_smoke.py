@@ -5,23 +5,37 @@ Run from the root of a checkout, on a machine with one CUDA card and
 ``nvcc``::
 
     python3 chip_smoke.py                 # full size: 64 columns x (2**27 - 5) rows
-    python3 chip_smoke.py --rows-log2 22  # a quick, small run
+    python3 chip_smoke.py --rows-log2 22 --tiled-rows-log2 22  # a quick, small run
 
 What it does, one JSON object per line:
 
-1. ``env``       -- card name and power limit, torch / CUDA / nvcc versions,
-                    seconds the kernel build took (built here from
-                    ``src/repro_torch/kernels/csrc``).
-2. ``kernels``   -- the circuit-program kernel against its plain version on
-                    the card over a sweep of shapes and circuits; mismatched
-                    words per case (must all be 0).
-3. ``main_path`` -- builds a device-resident ``BitmapIndex`` and runs
-                    planner-driven ``execute`` / ``execute_many`` queries;
-                    every result is compared with the plain version over the
-                    whole array and with a counter oracle on a slice that
-                    holds the tail; launch counts are read around this phase.
-4. ``timing``    -- CUDA-event medians of the fused queries, bytes moved,
-                    GB/s and the memory bound; host time of plan + dispatch.
+1. ``env``          -- card name and power limit, torch / CUDA / nvcc versions,
+                       seconds the kernel builds took (both built here from
+                       ``src/repro_torch/kernels/csrc``, one ``nvcc`` each,
+                       started together).
+2. ``kernels``      -- the circuit-program kernel (K1) against its plain
+                       version on the card over a sweep of shapes and circuits;
+                       mismatched words per case (must all be 0).
+3. ``tiled_kernels``-- the tiled block kernel (K2) against its plain version
+                       over a sweep of synthetic block plans (tile widths,
+                       residual widths up to 64 inputs, 1 and 4 outputs, one
+                       and several groups, every container kind).
+4. ``main_path``    -- builds a device-resident ``BitmapIndex`` of random
+                       columns and runs planner-driven ``execute`` /
+                       ``execute_many`` queries (the dense ``fused`` route);
+                       every result is compared with the plain version over
+                       the whole array and with a counter oracle on a slice
+                       that holds the tail; launch counts are read around it.
+5. ``timing``       -- CUDA-event medians of the fused queries, bytes moved,
+                       GB/s and the memory bound; host time of plan + dispatch.
+6. ``tiled_path``   -- a second index, clustered (runs, noise, a dense tail),
+                       on which the planner picks ``tiled_fused``; every result
+                       is compared with the dense route, the counter oracle
+                       and the ``merge`` engine on a tile subset; launch counts
+                       are read around it.
+7. ``tiled_timing`` -- per tiled query: K2's time and bound, the event stage's
+                       time, the plain version's, time to result, and the dense
+                       route's time to result on the same index.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line, and the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -53,6 +67,8 @@ PEAK_ALU_OPS_PER_S = 33.5e12
 
 K1_SOURCE = "src/repro_torch/kernels/csrc/circuit_eval.cu"
 K1_REPLACES = "src/repro/kernels/threshold_ssum.py:88"
+K2_SOURCE = "src/repro_torch/kernels/csrc/tiled_block.cu"
+K2_REPLACES = "src/repro/kernels/tiled_scan.py:236"
 
 
 def emit(tag: str, **fields) -> None:
@@ -101,16 +117,19 @@ def phase_env() -> str:
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-2:]
     t0 = time.perf_counter()
-    _build.load_library("circuit_eval")
+    _build.build_libraries(["circuit_eval", "tiled_block"])
+    for name in ("circuit_eval", "tiled_block"):
+        _build.load_library(name)
     emit("env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=" | ".join(nvcc), python=sys.version.split()[0],
          kernel_build_seconds=round(time.perf_counter() - t0, 3),
+         per_kernel_build_seconds={k: round(v, 3) for k, v in _build.build_seconds.items()},
          build_dir=os.path.relpath(str(_build.build_dir()), ROOT))
     return smi
 
 
 # ---------------------------------------------------------------------------
-# phase 2: the kernel against its plain version
+# phase 2: the circuit kernel against its plain version
 # ---------------------------------------------------------------------------
 
 
@@ -222,7 +241,143 @@ def phase_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the tiled block kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def mixed_tile_bits(rng, n: int, n_tiles: int, tw: int) -> np.ndarray:
+    """bool[n, n_tiles * tw * 32 - 7]: each tile of each column all-zero,
+    all-one, sparse, a few runs, or dense; the last tile is partial."""
+    span = tw * 32
+    r = n_tiles * span - 7
+    bits = np.zeros((n, r), bool)
+    for i in range(n):
+        for t, kind in enumerate(rng.integers(0, 5, n_tiles)):
+            lo, hi = t * span, min((t + 1) * span, r)
+            if kind == 1:
+                bits[i, lo:hi] = True
+            elif kind == 2:
+                bits[i, rng.integers(lo, hi, int(rng.integers(1, 2 * tw)))] = True
+            elif kind == 3:
+                for _ in range(int(rng.integers(1, max(2, tw // 4)))):
+                    a = int(rng.integers(lo, hi))
+                    bits[i, a:min(hi, a + int(rng.integers(1, span // 2)))] = True
+            elif kind == 4:
+                bits[i, lo:hi] = rng.random(hi - lo) < 0.4
+    return bits
+
+
+def group_circuit(m: int, k: int, salt: int):
+    """A residual-like circuit over m inputs with k outputs (a threshold, a
+    parity, an OR-like threshold, an AND of two inputs)."""
+    from repro_torch.core import circuits as C
+
+    c = C.Circuit(m, [], [])
+    w = C.sideways_sum_bits(c, list(range(m)))
+    outs = [C.ge_const(c, w, max(1, (m + salt) // 2)), w[0], C.ge_const(c, w, 1),
+            c.AND(0, m - 1) if m > 1 else 0]
+    c.outputs = outs[:k]
+    return c.optimized()
+
+
+def synthetic_block_stage(store, specs, k_max: int, rng, *, dummy_share=0.1):
+    """A block-stage plan over random (column, tile) cells of ``store``:
+    ``specs`` is [(m, k, n_tiles)] per group.  Returns (stage, n_sel, gates x
+    words, cell kinds used)."""
+    from repro_torch.kernels import tiled_scan as TK
+    from repro_torch.storage.tiled import cell_descriptors
+
+    tw = store.tile_words
+    circs = tuple(group_circuit(m, k, g) for g, (m, k, _n) in enumerate(specs))
+    table = TK.program_table(circs, k_max)
+    B = TK.pick_tile_block(tw, table.n_registers, max(n for _m, _k, n in specs))
+    m_max = max(c.n_inputs for c in circs)
+    n_sel = sum(n for _m, _k, n in specs) + 5
+    D = store.packs["dense_pack"].shape[0]
+    gids, cells, dst = [], [], []
+    tile0 = 0
+    for g, (circ, (_m, _k, ng)) in enumerate(zip(circs, specs)):
+        m, k = circ.n_inputs, len(circ.outputs)
+        nb = -(-ng // B)
+        wg = rng.integers(0, store.n, (m, ng))
+        tg = rng.integers(0, store.n_tiles, (m, ng))
+        c = np.zeros((m_max, nb * B, 3), np.int64)
+        c[:, :, 1] = D
+        c[:m, :ng] = cell_descriptors(store, wg, tg)
+        cells.append(c.reshape(m_max, nb, B, 3).transpose(1, 0, 2, 3))
+        d = np.full((nb, k_max, B), -1, np.int64)
+        tpos = np.arange(ng)
+        aimed = rng.random(ng) >= dummy_share  # the rest go nowhere
+        for j in range(k):
+            d[tpos[aimed] // B, j, tpos[aimed] % B] = j * n_sel + tile0 + tpos[aimed]
+        dst.append(d)
+        gids.append(np.full(nb, g, np.int32))
+        tile0 += ng
+    cells = np.concatenate(cells)
+    st = TK.make_block_stage(table, np.concatenate(gids), cells, np.concatenate(dst),
+                             store.device_packs(), B, tw)
+    return st, n_sel, np.bincount(cells[..., 0].reshape(-1), minlength=5)
+
+
+def phase_tiled_kernels(dev) -> dict:
+    from repro_torch.core.bitmaps import pack
+    from repro_torch.kernels import tiled_scan as TK
+    from repro_torch.storage import TileStore
+
+    rng = np.random.default_rng(4321)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    cases = []
+    worst = 0
+    kinds_seen = np.zeros(5, np.int64)
+    specs = {
+        "m=1 k_max=1": ([(1, 1, 7)], 1),
+        "m=3,5 k_max=4": ([(3, 1, 40), (5, 4, 33)], 4),
+        "overflow-style m=64 k_max=1": ([(64, 1, 70)], 1),
+        "m=64,12,2 k_max=4": ([(64, 4, 45), (12, 2, 61), (2, 1, 9)], 4),
+        "m=16,40 k_max=4": ([(16, 3, 30), (40, 4, 29)], 4),
+        "m=8 k_max=1, many blocks": ([(8, 1, 5000)], 1),
+        "m=2 k_max=1, a block of few words": ([(2, 1, 3)], 1),
+    }
+    wide = ("m=3,5 k_max=4", "m=8 k_max=1, many blocks")  # register files that fit 1,536 words
+    for tw, n_tiles in ((8, 96), (64, 96), (1536, 12)):
+        bits = mixed_tile_bits(rng, 8, n_tiles, tw)
+        store = TileStore.from_packed(pack(torch.from_numpy(bits).to(dev), dev), tile_words=tw,
+                                      r=bits.shape[1], device=dev)
+        census = store.container_census()
+        check(min(census[k] for k in ("clean", "dense", "sparse", "run")) > 0,
+              f"tw={tw}: the sweep's store lacks a container kind: {census}")
+        for name, (spec, k_max) in specs.items():
+            if tw > 1024 and name not in wide:
+                continue
+            if tw > 1024:
+                spec = [(m, k, min(n, 300)) for m, k, n in spec]
+            st, n_sel, kinds = synthetic_block_stage(store, spec, k_max, rng)
+            kinds_seen += kinds
+            buf0 = torch.randint(-(2**31), 2**31, (k_max, n_sel, tw), generator=gen, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
+            got = buf0.clone()
+            TK.block_runner(got, st)
+            torch.cuda.synchronize()
+            want = buf0.clone()
+            TK.block_plain(want, st)
+            bad = mismatches(got, want)
+            worst = max(worst, int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()))
+            written = int((got != buf0).sum().item())
+            cases.append({"case": f"tw={tw} {name}", "B": st.B, "blocks": st.n_blocks,
+                          "launch_shape": TK.launch_shape(st.B * tw),
+                          "n_registers": st.table.n_registers, "m_max": st.m_max,
+                          "cells_by_kind": kinds.tolist(), "words_written": written,
+                          "mismatched_words": bad})
+            check(bad == 0, f"tiled_block case tw={tw} {name}: {bad} mismatched words")
+            check(written > 0, f"tiled_block case tw={tw} {name}: nothing written")
+    check(bool((kinds_seen > 0).all()), f"every cell kind in the sweep: {kinds_seen.tolist()}")
+    emit("tiled_kernels", n_cases=len(cases), cells_by_kind=kinds_seen.tolist(),
+         all_zero=all(c["mismatched_words"] == 0 for c in cases), cases=cases)
+    return {"max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path (dense route)
 # ---------------------------------------------------------------------------
 
 
@@ -400,7 +555,7 @@ def phase_main_path(dev, rows_log2: int, n: int, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: timing
+# phase 5: timing of the dense route
 # ---------------------------------------------------------------------------
 
 
@@ -481,10 +636,310 @@ def phase_timing(idx, queries, many, reps: int) -> dict:
     return headline
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the tiled path
+# ---------------------------------------------------------------------------
+
+MEAN_RUN_BITS = 2**15
+NOISE_DENSITY = 2e-5
+DENSE_TAIL_COLUMNS, DENSE_TAIL_DENSITY = 8, 0.35
+
+
+def make_clustered_columns(n: int, r: int, dev, seed: int) -> tuple:
+    """int32[n, n_words] modelled on a bitmap index over a sorted table:
+    column i is a union of runs covering a share of the rows that falls
+    geometrically from 0.5 to 1e-3 (run lengths geometric, mean 2**15 bits;
+    boundaries from a seeded numpy generator), plus uniform noise bits at
+    2e-5; in the last 1/16 of the rows, columns 0-7 are i.i.d. bits at 0.35.
+    Noise and dense bits come from a seeded generator on the card."""
+    from repro_torch.core.bitmaps import n_words_for, pack
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    cover = np.geomspace(0.5, 1e-3, n)
+    dense_from = r - r // 16
+    cols = torch.empty((n, n_words_for(r)), dtype=torch.int32, device=dev)
+    runs = []
+    for i, p in enumerate(cover):
+        mean_gap = MEAN_RUN_BITS * (1 - p) / p
+        k = int(r / (MEAN_RUN_BITS + mean_gap) * 1.5) + 16
+        lengths = np.empty(2 * k, np.int64)
+        lengths[0::2] = rng.geometric(1 / mean_gap, k)  # gap, then run, ...
+        lengths[1::2] = rng.geometric(1 / MEAN_RUN_BITS, k)
+        edges = np.cumsum(lengths)
+        edges = edges[edges < r]  # an odd count: the last run reaches the end
+        runs.append((len(edges) + 1) // 2)
+        toggles = torch.zeros(r, dtype=torch.int32, device=dev)
+        vals = torch.ones(len(edges), dtype=torch.int32, device=dev)
+        vals[1::2] = -1
+        toggles[torch.from_numpy(edges).to(dev)] = vals
+        bits = torch.cumsum(toggles, 0, dtype=torch.int32) != 0
+        del toggles
+        bits |= torch.rand(r, generator=gen, device=dev) < NOISE_DENSITY
+        if i < DENSE_TAIL_COLUMNS:
+            bits[dense_from:] = torch.rand(r - dense_from, generator=gen, device=dev) < DENSE_TAIL_DENSITY
+        cols[i] = pack(bits, dev)
+    return cols, [float(p) for p in cover], runs
+
+
+def tiled_queries(names: tuple) -> tuple:
+    from repro_torch.query import Col, Interval, Parity, Threshold
+
+    n = len(names)
+    every4 = tuple(names[i] for i in range(0, n, 4))
+    eight = tuple(names[i] for i in range(1, n, 8))
+    queries = {
+        "interval_2_10": Interval(2, 10),
+        "threshold_2": Threshold(2),
+        f"threshold_{n // 2}": Threshold(n // 2),
+        "threshold_3_of_every4": Threshold(3, over=every4),
+        "composite": (Threshold(3, over=every4) & ~Col(names[5])) | Parity(over=eight),
+        "threshold_2_of_last16": Threshold(2, over=names[n - 16:]),
+    }
+    return queries, [Threshold(2), Threshold(4), Threshold(8)]
+
+
+def phase_tiled_path(dev, rows_log2: int, n: int, seed: int):
+    from repro_torch.core.bitmaps import cardinality, pack, packed_tail_mask
+    from repro_torch.kernels import threshold_ssum as K
+    from repro_torch.kernels import tiled_scan as TK
+    from repro_torch.query import BitmapIndex
+    from repro_torch.query.index import circuit_for
+    from repro_torch.storage import run_tiled_circuit
+
+    r = 2**rows_log2 - 5
+    t0 = time.perf_counter()
+    cols, cover, runs = make_clustered_columns(n, r, dev, seed)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    names = tuple(f"s{i}" for i in range(n))
+    queries, many = tiled_queries(names)
+
+    # counts to 0 just before the tiled path is driven
+    for counts in (K.launch_counts, TK.launch_counts):
+        for key in counts:
+            counts[key] = 0
+
+    t0 = time.perf_counter()
+    idx = BitmapIndex(cols, names, r=r)  # device=None: the card
+    store = idx.store
+    census = store.container_census()
+    t_build = time.perf_counter() - t0
+    report, results, block_stages = [], {}, 0
+    for name, q in queries.items():
+        plan = idx.explain(q)
+        t0 = time.perf_counter()
+        got = idx.execute(q)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        info = dict(idx.last_info)
+        t0 = time.perf_counter()
+        again = idx.execute(q)  # the cached plan
+        torch.cuda.synchronize()
+        t_cached = time.perf_counter() - t0
+        block_stages += 2 * (info["densified_tiles"] > 0)
+        check(got.shape == (idx.n_words,) and got.dtype == torch.int32
+              and got.device == idx.device, f"{name}: result shape/dtype/device")
+        check(torch.equal(got, again), f"{name}: the cached plan gives another result")
+        results[name] = (q, got)
+        report.append({
+            "query": name, "algorithm": plan.algorithm, "cost_words": plan.cost,
+            "words_touched": info["words_touched"], "decode_words": info["decode_words"],
+            "dirty_words_gathered": info["dirty_words_gathered"],
+            "signatures": info["signatures"], "residual_signatures": info["residual_signatures"],
+            "const_tiles": info["const_tiles"], "event_tiles": info["event_tiles"],
+            "densified_tiles": info["densified_tiles"], "launches": info["launches"],
+            "words_by_kind": info["words_by_kind"],
+            "host_s_first_call": t_first, "host_s_cached_call": t_cached})
+    many_plans = [idx.explain(q).algorithm for q in many]
+    t0 = time.perf_counter()
+    many_got = idx.execute_many(many)
+    torch.cuda.synchronize()
+    t_many = time.perf_counter() - t0
+    many_info = dict(idx.last_info)
+    block_stages += many_info["densified_tiles"] > 0
+
+    # counts read just after the tiled path was driven
+    counts = {**K.launch_counts, **TK.launch_counts}
+
+    for rec in report:
+        check(rec["algorithm"] == "tiled_fused", f"{rec['query']}: planned {rec['algorithm']}")
+        check(rec["launches"] <= 2, f"{rec['query']}: {rec['launches']} launches")
+    check(all(a == "tiled_fused" for a in many_plans), f"execute_many plans {many_plans}")
+    check(many_info["backend"] == "tiled_fused" and many_info["n_outputs"] == len(many)
+          and many_info["launches"] <= 2, f"execute_many: one tiled dispatch, got {many_info}")
+    infos = [rec for rec in report] + [many_info]
+    check(any(i["event_tiles"] > 0 and i["densified_tiles"] > 0 for i in infos),
+          "a query with both an event and a block stage")
+    for key in ("event_tiles", "densified_tiles", "const_tiles"):
+        check(any(i[key] > 0 for i in infos), f"{key} > 0 somewhere")
+    for kind in ("dense", "sparse", "run"):
+        check(sum(i["words_by_kind"][kind] for i in infos) > 0, f"words_by_kind[{kind}] > 0")
+    check(counts["tiled_block"] == block_stages and block_stages > 0,
+          f"tiled_block launched {counts['tiled_block']} times, {block_stages} block stages")
+    check(counts["circuit_eval"] == 0, "the tiled path launched the circuit kernel")
+
+    # verification: the dense route, the counter oracle, the merge engine
+    sl_words = min(idx.n_words, 2**16)
+    tail_rows = idx.columns[:, idx.n_words - sl_words:]
+    tail_bits = r - (idx.n_words - sl_words) * 32
+    slot = {nm: i for i, nm in enumerate(names)}
+    tw = store.tile_words
+    rng = np.random.default_rng(seed + 7)
+    sel = np.unique(np.append(rng.choice(store.n_tiles, min(3000, store.n_tiles), replace=False),
+                              store.n_tiles - 1))
+    mask = packed_tail_mask(r, idx.n_words, dev)
+    if mask is None:
+        mask = torch.full((idx.n_words,), -1, dtype=torch.int32, device=dev)
+    pad = store.n_tiles * tw - idx.n_words
+    mask_t = torch.nn.functional.pad(mask, (0, pad)).view(store.n_tiles, tw)[torch.from_numpy(sel).to(dev)]
+
+    def verify(name, q, got, circ, j):
+        want = idx.execute(q, backend="fused")
+        bad_dense = mismatches(got, want)
+        ob = oracle_bits(q, slot, tail_rows)
+        ob[tail_bits:] = False
+        bad_oracle = mismatches(got[idx.n_words - sl_words:], pack(ob, dev))
+        merged, minfo = run_tiled_circuit(store, circ, tiles=sel, engine="merge")
+        got_t = torch.nn.functional.pad(got, (0, pad)).view(store.n_tiles, tw)
+        bad_merge = mismatches(merged[j] & mask_t, got_t[torch.from_numpy(sel).to(dev)])
+        check(bad_dense == 0, f"{name}: {bad_dense} words differ from the dense route")
+        check(bad_oracle == 0, f"{name}: {bad_oracle} words differ from the oracle")
+        check(bad_merge == 0, f"{name}: {bad_merge} words differ from the merge engine")
+        return {"dense": bad_dense, "oracle": bad_oracle, "merge": bad_merge,
+                "merge_launches": minfo["launches"]}
+
+    for rec in report:
+        q, got = results[rec["query"]]
+        rec["mismatch"] = verify(rec["query"], q, got, circuit_for((q,), n, names), 0)
+    many_circ = circuit_for(tuple(many), n, names)
+    many_bad = [verify(f"execute_many[{j}]", q, g, many_circ, j)
+                for j, (q, g) in enumerate(zip(many, many_got))]
+    q, got = results["interval_2_10"]
+    check(idx.count(q) == int(cardinality(got).item()), "count() equals the result's cardinality")
+
+    emit("tiled_path", n_columns=n, r=r, n_words=idx.n_words, tile_words=tw,
+         n_tiles=store.n_tiles, coverage=[cover[0], cover[-1]], runs_per_column=[runs[0], runs[-1]],
+         mean_run_bits=MEAN_RUN_BITS, noise_density=NOISE_DENSITY,
+         dense_tail={"columns": DENSE_TAIL_COLUMNS, "density": DENSE_TAIL_DENSITY, "rows": r // 16},
+         seconds_make_bits=round(t_make, 2), seconds_build_and_classify=round(t_build, 2),
+         census=census, clean_fraction=store.clean_fraction, queries=report,
+         execute_many={"k": len(many), "plans": many_plans, "host_s": t_many,
+                       "launches": many_info["launches"], "event_tiles": many_info["event_tiles"],
+                       "densified_tiles": many_info["densified_tiles"],
+                       "decode_words": many_info["decode_words"], "mismatch": many_bad},
+         merge_tiles=int(sel.size), launch_counts=counts)
+    return idx, queries, many, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timing of the tiled route
+# ---------------------------------------------------------------------------
+
+GATES_PER_OP = {7: 5, 8: 4, 0: 1, 1: 1, 2: 1, 3: 1}  # FA, MAJ, and/or/xor/andnot
+
+
+def block_stage_work(st) -> dict:
+    """Bytes the block stage must move and gate-words it must compute, for
+    this plan's data (padding cells and unused dst entries not counted)."""
+    cells = st.cells.cpu().numpy()
+    dst = st.dst.cpu().numpy()
+    gids = st.gids.cpu().numpy()
+    tw = st.tw
+    kind = cells[..., 0]
+    sizes = cells[..., 2] - cells[..., 1]
+    dense_b = int((kind == 2).sum()) * tw * 4
+    sparse_b = int(sizes[kind == 3].sum()) * 2
+    run_b = int(sizes[kind == 4].sum()) * 4
+    tables_b = (gids.nbytes + cells.nbytes + dst.nbytes + st.table.prog.nbytes
+                + st.table.groups.nbytes + st.table.outs.nbytes)
+    written_b = int((dst >= 0).sum()) * tw * 4
+    ops = 0
+    for g in range(len(st.table.groups)):
+        prog, _outs, _n, _m = st.table.program(g)
+        gates = sum(GATES_PER_OP.get(int(op), 0) for op in prog[:, 0])
+        tiles = int((dst[gids == g][:, 0, :] >= 0).sum())
+        ops += gates * tiles * tw
+    return {"bytes": dense_b + sparse_b + run_b + tables_b + written_b, "dense_bytes": dense_b,
+            "payload_bytes": sparse_b + run_b, "table_bytes": tables_b, "written_bytes": written_b,
+            "gate_words": ops}
+
+
+def phase_tiled_timing(idx, queries, many, reps: int) -> dict:
+    from repro_torch.kernels import threshold_ssum as K
+    from repro_torch.kernels import tiled_scan as TK
+    from repro_torch.query.index import circuit_for
+    from repro_torch.storage import run_tiled_circuit
+
+    store = idx.store
+    names = idx.names
+    out, headline = [], None
+
+    def to_result(fn, n=5):
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    def one(name, qs):
+        nonlocal headline
+        circ = circuit_for(tuple(qs), idx.n, names)
+        run_tiled_circuit(store, circ)  # the plan is cached
+        ckey = K.circuit_structural_key(circ)
+        plan = store._scan_plan_cache[(ckey, None)][0]
+        k, n_sel, tw = plan["k"], plan["n_sel"], plan["tw"]
+        buf = plan["base"][:, :, None].expand(k, n_sel, tw).contiguous()
+        rec = {"query": name, "outputs": k}
+        if plan["block"] is not None:
+            st = plan["block"]
+            times = cuda_ms(lambda: TK.block_runner(buf, st), reps=reps)
+            plain = cuda_ms(lambda: TK.block_plain(buf, st), reps=3, warmup=1)
+            work = block_stage_work(st)
+            bytes_ms = work["bytes"] / PEAK_BYTES_PER_S * 1e3
+            ops_ms = work["gate_words"] / PEAK_ALU_OPS_PER_S * 1e3
+            ms = statistics.median(times)
+            rec.update({"k2_ms_median": ms, "k2_ms_min": min(times), "k2_ms_max": max(times),
+                        "blocks": st.n_blocks, "B": st.B, "groups": len(st.table.groups),
+                        "launch_shape": TK.launch_shape(st.B * st.tw),
+                        "n_registers": st.table.n_registers, **work,
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                        "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
+                        "share_of_bound": max(bytes_ms, ops_ms) / ms,
+                        "k2_plain_ms_median": statistics.median(plain)})
+        if plan["event"] is not None:
+            ev = plan["event"]
+            rec.update({"event_ms_median": statistics.median(
+                cuda_ms(lambda: TK.event_runner(buf, ev), reps=reps)),
+                "event_toggles": int(ev.keys.numel())})
+        if len(qs) == 1:
+            q = qs[0]
+            rec["tiled_to_result_ms"] = to_result(lambda: idx.execute(q))
+            rec["dense_fused_to_result_ms"] = to_result(lambda: idx.execute(q, backend="fused"))
+            rec["dense_k1_ms_median"] = statistics.median(
+                cuda_ms(lambda: K.run_circuit_cached(idx.columns, circ), reps=reps))
+        else:
+            rec["tiled_to_result_ms"] = to_result(lambda: idx.execute_many(qs))
+        out.append(rec)
+        if name == "interval_2_10":
+            headline = rec
+
+    for name, q in queries.items():
+        one(name, [q])
+    one(f"execute_many_k{len(many)}", many)
+    emit("tiled_timing", queries=out)
+    return headline
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-log2", type=int, default=27,
-                    help="the index holds 2**this - 5 rows (default 27: a 1 GiB index)")
+                    help="the dense path's index holds 2**this - 5 rows (default 27: 1 GiB)")
+    ap.add_argument("--tiled-rows-log2", type=int, default=27,
+                    help="the tiled path's index holds 2**this - 5 rows (default 27: 1 GiB)")
     ap.add_argument("--columns", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
@@ -500,14 +955,29 @@ def main() -> int:
           "the port must not import jax or the reference package")
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    smi = phase_env()
-    kernel_check = phase_kernels(dev)
-    idx, queries, many, counts = phase_main_path(dev, args.rows_log2, args.columns, args.seed)
-    head = phase_timing(idx, queries, many, args.reps)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        got = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return got
+
+    smi = timed("env", phase_env)
+    k1_check = timed("kernels", phase_kernels, dev)
+    k2_check = timed("tiled_kernels", phase_tiled_kernels, dev)
+    idx, queries, many, counts = timed("main_path", phase_main_path, dev, args.rows_log2,
+                                       args.columns, args.seed)
+    head = timed("timing", phase_timing, idx, queries, many, args.reps)
+    n_words_dense = idx.n_words
+    del idx
+    tidx, tqueries, tmany, tcounts = timed("tiled_path", phase_tiled_path, dev,
+                                           args.tiled_rows_log2, args.columns, args.seed)
+    thead = timed("tiled_timing", phase_tiled_timing, tidx, tqueries, tmany, args.reps)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port must not import jax or the reference package")
 
-    emit("done", seconds_total=round(time.perf_counter() - t_start, 1))
+    emit("done", seconds_total=round(time.perf_counter() - t_start, 1), seconds=seconds)
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "circuit_eval",
@@ -515,14 +985,29 @@ def main() -> int:
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": counts["circuit_eval"],
-        "max_abs_err": kernel_check["max_abs_err"],
+        "max_abs_err": k1_check["max_abs_err"],
         "ms": head["ms_median"],
         "plain_ms": head["plain_ms_median"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
-        "shape": f"interval_2_10: {head['inputs_read']} x {idx.n_words} int32 in, "
-                 f"{head['outputs']} x {idx.n_words} out",
+        "shape": f"interval_2_10: {head['inputs_read']} x {n_words_dense} int32 in, "
+                 f"{head['outputs']} x {n_words_dense} out",
+        "tolerance": "exact (bitmaps)",
+    }, {
+        "name": "tiled_block",
+        "route": "cuda",
+        "source": K2_SOURCE,
+        "replaces": K2_REPLACES,
+        "launches": tcounts["tiled_block"],
+        "max_abs_err": k2_check["max_abs_err"],
+        "ms": thead["k2_ms_median"],
+        "plain_ms": thead["k2_plain_ms_median"],
+        "bound_ms": thead["bound_ms"],
+        "bound_by": thead["bound_by"],
+        "library_ms": None,
+        "shape": f"interval_2_10 on the clustered index: {thead['blocks']} blocks of "
+                 f"{thead['B']} tiles, {thead['groups']} residual groups",
         "tolerance": "exact (bitmaps)",
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

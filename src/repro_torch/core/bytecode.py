@@ -30,9 +30,18 @@ Two things are done here for the interpreter's sake:
   interpreter pays a fixed price per instruction and the paper's adder
   circuits are made of little else.
 
+The tiled route's block kernel (``kernels/csrc/tiled_block.cu``) runs the
+same instruction set over a **program table**
+(:func:`encode_program_table`): one program per residual group, compiled
+with ``preloaded=True`` -- the group's inputs already sit in slots ``0 ..
+m - 1``, where the kernel's decode stage writes them, so the program has
+no ``LOAD`` -- concatenated, with per-group offset, length, register count
+and input count, and ``k_max`` output slots per group.
+
 The register file, program encoding and opcodes are the contract between
-this module, the kernel source ``kernels/csrc/circuit_eval.cu`` and the
-plain version in ``kernels/threshold_ssum.py``.
+this module, the kernel sources ``kernels/csrc/circuit_eval.cu`` and
+``kernels/csrc/tiled_block.cu``, and the one plain interpreter in
+``kernels/threshold_ssum.py``.
 """
 from __future__ import annotations
 
@@ -43,7 +52,8 @@ import numpy as np
 
 from .circuits import CONST0, CONST1, Circuit
 
-__all__ = ["ByteCode", "compile_circuit", "encode_program", "fuse_adders", "OPCODES",
+__all__ = ["ByteCode", "ProgramTable", "compile_circuit", "encode_program",
+           "encode_program_table", "fuse_adders", "OPCODES",
            "OP_LOAD", "OP_COMMIT", "OP_WAIT", "OP_FA", "OP_MAJ", "OP_EXT", "OP_NOP",
            "OP_CONST", "LOAD_BATCH", "PROG_CHUNK"]
 
@@ -166,7 +176,15 @@ def fuse_adders(circ: Circuit) -> list:
     return items
 
 
-def compile_circuit(circ: Circuit) -> ByteCode:
+def compile_circuit(circ: Circuit, *, preloaded: bool = False) -> ByteCode:
+    """Register-allocated byte code of ``circ``.
+
+    By default input rows enter through scheduled ``LOAD`` batches.  With
+    ``preloaded`` input ``i`` already occupies slot ``i`` when the program
+    starts (the tiled block kernel decodes it there): no ``LOAD``,
+    ``COMMIT`` or ``WAIT`` is emitted, and an input's slot is reclaimed
+    after its last use like any other.
+    """
     n_in = circ.n_inputs
     items = fuse_adders(circ)
 
@@ -195,9 +213,8 @@ def compile_circuit(circ: Circuit) -> ByteCode:
     batch_of = {i: j for j, b in enumerate(batches) for i in b}
 
     free: list[int] = []
-    reg_of: dict[int, int] = {}
-    n_regs = 0
-    peak = 0
+    reg_of: dict[int, int] = {i: i for i in range(n_in)} if preloaded else {}
+    n_regs = peak = n_in if preloaded else 0
     instrs: list = []
     issued = ready = 0
     n_fused = 0
@@ -229,7 +246,7 @@ def compile_circuit(circ: Circuit) -> ByteCode:
         if x < 0:
             if x not in reg_of:
                 instrs.append((OP_CONST, alloc(x), 0 if x == CONST0 else -1, 0))
-        elif x < n_in:
+        elif x < n_in and not preloaded:
             make_ready(batch_of[x])
         return reg_of[x]
 
@@ -256,7 +273,8 @@ def compile_circuit(circ: Circuit) -> ByteCode:
             instrs.append((OP_EXT, alloc(c_node), srcs[2], 0))
         n_fused += 1
     outs = [src(o) for o in circ.outputs]
-    return ByteCode(n_in, n_regs, instrs, outs, peak, tuple(order), n_fused)
+    loaded = () if preloaded else tuple(order)
+    return ByteCode(n_in, n_regs, instrs, outs, peak, loaded, n_fused)
 
 
 def encode_program(bc: ByteCode, rows=None):
@@ -274,3 +292,58 @@ def encode_program(bc: ByteCode, rows=None):
         loads = prog[:, 0] == OP_LOAD
         prog[loads, 2] = table[prog[loads, 2]]
     return prog, outs
+
+
+@dataclasses.dataclass
+class ProgramTable:
+    """The residual programs of one tiled block stage, concatenated.
+
+    ``prog`` int32[total, 4] holds every group's instructions; ``groups``
+    int32[G, 4] is ``(offset, length, n_registers, n_inputs)`` per group and
+    ``outs`` int32[G, k_max] the slot of each output.  A group with fewer
+    than ``k_max`` outputs ends with a ``CONST`` 0 into a slot of its own,
+    and its missing outputs point there.  Each program starts at its own
+    offset, and the kernel stages it in chunks counted from there, so the
+    ``PROG_CHUNK`` alignment of two-word instructions holds per program.
+    """
+
+    prog: np.ndarray
+    groups: np.ndarray
+    outs: np.ndarray
+    k_max: int
+
+    @property
+    def n_registers(self) -> int:
+        """The largest register file of any group (sizes the kernel's block)."""
+        return int(self.groups[:, 2].max()) if len(self.groups) else 0
+
+    def program(self, g: int):
+        """(int32[len, 4] instructions, output slots, n_registers, n_inputs) of group g."""
+        off, length, n_regs, m = (int(v) for v in self.groups[g])
+        return self.prog[off:off + length], self.outs[g], n_regs, m
+
+
+def encode_program_table(circuits, k_max: int) -> ProgramTable:
+    """One preloaded program per residual circuit (see :class:`ProgramTable`)."""
+    progs, groups, outs = [], [], []
+    off = 0
+    for circ in circuits:
+        bc = compile_circuit(circ, preloaded=True)
+        ins = list(bc.instructions)
+        regs = list(bc.output_regs)
+        n_regs = bc.n_registers
+        if len(regs) < k_max:
+            ins.append((OP_CONST, n_regs, 0, 0))
+            regs += [n_regs] * (k_max - len(regs))
+            n_regs += 1
+        prog = np.asarray(ins, dtype=np.int32).reshape(len(ins), 4)
+        progs.append(prog)
+        groups.append((off, len(ins), n_regs, circ.n_inputs))
+        outs.append(regs)
+        off += len(ins)
+    return ProgramTable(
+        prog=np.concatenate(progs) if progs else np.zeros((0, 4), np.int32),
+        groups=np.asarray(groups, dtype=np.int32).reshape(-1, 4),
+        outs=np.asarray(outs, dtype=np.int32).reshape(-1, k_max),
+        k_max=int(k_max),
+    )

@@ -21,7 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_dir", "nvcc_path", "build_seconds"]
+__all__ = ["load_library", "build_libraries", "build_dir", "nvcc_path", "build_seconds"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,30 +50,45 @@ def nvcc_path() -> str:
     )
 
 
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}-{digest}.so"
+
+
+def build_libraries(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` per source, all started together; raises if any fails."""
+    os.makedirs(build_dir(), exist_ok=True)
+    started = []
+    for name in names:
+        so = _library_path(name)
+        if so.exists():
+            build_seconds.setdefault(name, 0.0)
+            continue
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started.append((name, so, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for name, so, tmp, cmd, proc, t0 in started:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+            continue
+        os.replace(tmp, so)  # atomic: a concurrent build never loads half a file
+        build_seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is not built yet, load it."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    os.makedirs(out_dir, exist_ok=True)
-    so = out_dir / f"lib{name}-{digest}.so"
-    if not so.exists():
-        t0 = time.perf_counter()
-        tmp = out_dir / f"lib{name}-{digest}.{os.getpid()}.tmp.so"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent build never loads half a file
-        build_seconds[name] = time.perf_counter() - t0
-    else:
-        build_seconds.setdefault(name, 0.0)
-    lib = ctypes.CDLL(str(so))
+    build_libraries([name])
+    lib = ctypes.CDLL(str(_library_path(name)))
     _LIBS[name] = lib
     return lib

@@ -128,12 +128,21 @@ def _program_for(circuit: _ckt.Circuit, rows) -> _Program:
 # ---------------------------------------------------------------------------
 
 
-def _run_program_plain(bitmaps: torch.Tensor, p: _Program) -> torch.Tensor:
-    """Execute the encoded program over whole int32 rows with torch ops."""
-    n_words = bitmaps.shape[1]
-    regs: list = [None] * p.n_registers
+def _run_program_plain(bitmaps: torch.Tensor, prog, outs, n_registers: int, *,
+                       preloaded: bool = False) -> torch.Tensor:
+    """Execute an encoded program over whole int32 rows with torch ops.
 
-    prog = p.prog.tolist()
+    The one plain interpreter of both kernels: a K1 program
+    (``_Program``) reads its inputs through ``LOAD``; a tiled block program
+    (``core.bytecode.encode_program_table``) is ``preloaded``: row ``i`` of
+    ``bitmaps`` starts in slot ``i``.  Returns ``int32[len(outs), n_words]``.
+    """
+    n_words = bitmaps.shape[1]
+    regs: list = [None] * n_registers
+    if preloaded:
+        regs[: bitmaps.shape[0]] = list(bitmaps)
+
+    prog = prog.tolist()
     i = 0
     while i < len(prog):
         op, dst, a, b = prog[i]
@@ -164,7 +173,7 @@ def _run_program_plain(bitmaps: torch.Tensor, p: _Program) -> torch.Tensor:
             regs[dst] = regs[a] ^ regs[b]
         else:
             regs[dst] = regs[a] & ~regs[b]
-    return torch.stack([regs[s] for s in p.outs.tolist()])
+    return torch.stack([regs[s] for s in outs.tolist()])
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +309,7 @@ def run_circuit_cached(bitmaps: torch.Tensor, circuit: _ckt.Circuit, *, rows=Non
     if bitmaps.is_cuda:
         out = _circuit_eval_cuda(bitmaps, p)
     else:
-        out = _run_program_plain(bitmaps, p)
+        out = _run_program_plain(bitmaps, p.prog, p.outs, p.n_registers)
     return out[0] if p.k == 1 else out
 
 
@@ -309,7 +318,7 @@ def run_circuit_plain(bitmaps: torch.Tensor, circuit: _ckt.Circuit, *, rows=None
     whole rows with torch ops on whatever device ``bitmaps`` lies."""
     rows = _check(bitmaps, circuit, rows)
     p = _program_for(circuit, rows)
-    out = _run_program_plain(bitmaps, p)
+    out = _run_program_plain(bitmaps, p.prog, p.outs, p.n_registers)
     return out[0] if p.k == 1 else out
 
 

@@ -15,9 +15,10 @@ Execution is planner-driven (``core.planner``): a whole expression tree
 compiles into ONE shared Boolean circuit (sub-queries share the sideways-sum
 adder via CSE) evaluated in one launch of the CUDA circuit-program kernel
 (``kernels.threshold_ssum``).  Bare thresholds route to the specialised
-backends (wide OR/AND, streaming scancount) the paper recommends.  The
-tile-skipping ``tiled_fused`` route of the reference is planned but not yet
-executable here.
+backends (wide OR/AND, streaming scancount) the paper recommends, and
+clean-heavy data to the tile-skipping ``tiled_fused`` route
+(``storage.tiled``), whose block stage is a second hand-written kernel
+(``kernels.tiled_scan``).
 """
 
 from .expr import (

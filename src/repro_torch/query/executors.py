@@ -8,11 +8,15 @@ Every algorithm name the planner can emit resolves here:
   * fused / circuit         -- the whole compiled circuit in ONE launch of
     the CUDA circuit-program kernel (``kernels.threshold_ssum``); on a CPU
     device both names run the kernel's plain version
+  * tiled_fused             -- the tile-skipping executor
+    (``storage.tiled.run_tiled_circuit``): clean tiles fold to constants,
+    the rest run in at most two dispatches (event stage + the block
+    kernel of ``kernels.tiled_scan``)
   * wide_or / wide_and      -- the T=1 / T=N degenerate reductions
   * column                  -- a view of one row
-  * tiled_fused, rbmrg_block, dsk, looped, csvckt -- not ported yet: they
-    raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-    them.  No other backend is substituted.
+  * rbmrg_block, dsk, looped, csvckt -- not ported yet: they raise
+    ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+    No other backend is substituted.
 
 Backends are *shard-local* functions: they see one :class:`ShardContext`
 (the tile store, dense view, compiled circuit and bare-threshold shape of
@@ -52,8 +56,6 @@ THRESHOLD_BACKENDS = _DEVICE_ALGOS + (
 #: backends of the reference that the port does not run yet -> the ROADMAP.md
 #: item that ports them
 UNPORTED_BACKENDS = {
-    "tiled_fused": "ROADMAP.md Queue 1 item 2 (tiled_fused: storage/tiled.py, "
-                   "the pack/gather half of TileStore, kernel K2 and event_runner)",
     "rbmrg_block": "ROADMAP.md Queue 1 item 3 (remaining executors backends)",
     "dsk": "ROADMAP.md Queue 1 item 3 (remaining executors backends, with core/listalgos.py)",
     "looped": "ROADMAP.md Queue 1 item 3 (remaining executors backends)",
@@ -113,7 +115,8 @@ class ShardContext:
     bare: tuple | None = None  # (member slots | None, T) for bare thresholds
     column: int | None = None  # slot for 'column' plans
     block_words: int | None = None  # parity with the reference; unused by the kernel
-    #: tiled case-3 engine override of the reference; unused until tiled_fused is ported
+    #: tiled case-3 engine override: "scan" (the device engine) / "merge"
+    #: (host event-merge oracle) / None (auto per store)
     tiled_engine: str | None = None
 
     def member_rows(self) -> torch.Tensor:
@@ -169,7 +172,14 @@ def run_plan(ctx: ShardContext, plan):
             words_by_kind={"dense": nw}, launches=0, work_fraction=1.0,
         )
     if alg == "tiled_fused":
-        raise _not_ported(alg)
+        if ctx.store is None or ctx.circuit is None:
+            raise ValueError("'tiled_fused' needs a tile store and a compiled circuit")
+        from repro_torch.storage import run_tiled_circuit
+
+        return run_tiled_circuit(
+            ctx.store(), ctx.circuit(), block_words=ctx.block_words,
+            engine=ctx.tiled_engine,
+        )
     if alg in THRESHOLD_BACKENDS and ctx.bare is not None:
         if alg in UNPORTED_BACKENDS:
             raise _not_ported(alg)
@@ -254,6 +264,14 @@ def run_threshold_backend(bitmaps, t: int, backend: str, *,
         return _wide_and(bitmaps)
     if backend in UNPORTED_BACKENDS:
         raise _not_ported(backend)
+    if backend == "tiled_fused":
+        from repro_torch.core.circuits import build_threshold_circuit
+        from repro_torch.storage import TileStore, run_tiled_circuit
+
+        store = TileStore.from_packed(bitmaps, device=bitmaps.device)
+        circ = build_threshold_circuit(n, t, "ssum")
+        out, _info = run_tiled_circuit(store, circ, block_words=block_words)
+        return out
     if backend == "fused":
         return _fused_threshold(bitmaps, t)
     if backend in _DEVICE_ALGOS:

@@ -10,10 +10,12 @@ the planner is *always* data-aware:
   * :meth:`execute` plans a query expression (``core.planner.plan_query``
     with real member-subset tile statistics) and routes it -- bare
     thresholds to the specialised backends, everything else through ONE
-    compiled circuit evaluated in one kernel launch.  Clean-heavy data
-    plans ``tiled_fused``, which is not ported yet and raises;
+    compiled circuit evaluated in one kernel launch -- or, on clean-heavy
+    data, through ``tiled_fused``, which folds clean tiles to constants and
+    runs the rest in at most two dispatches;
   * :meth:`execute_many` compiles independent circuit-family queries into a
-    single multi-output circuit: one sweep over the inputs for all of them;
+    single multi-output circuit: one sweep over the inputs (or one tiled
+    dispatch) for all of them;
   * results are packed bitmaps (tail-masked to the universe size), so they
     can be fed back in as virtual columns with :meth:`add_column` -- the
     paper's "the result ... can be further processed within a bitmap index".
@@ -44,7 +46,7 @@ import torch
 from repro_torch.core.bitmaps import cardinality, pack, packed_tail_mask
 from repro_torch.core.planner import CIRCUIT_BACKENDS, Plan, plan_query
 from repro_torch.device import resolve_device, to_words
-from repro_torch.storage import TileStore
+from repro_torch.storage import TileStore, run_tiled_circuit
 
 from .compile import build_query_circuit
 from .expr import Col, Query, Threshold, as_query, canonical_key
@@ -81,9 +83,11 @@ def compiled_cache_info() -> dict:
 
 def clear_compiled_cache() -> None:
     from repro_torch.kernels.threshold_ssum import clear_circuit_runners
+    from repro_torch.kernels.tiled_scan import clear_scan_runners
 
     _CIRCUITS.clear()
     clear_circuit_runners()
+    clear_scan_runners()
     _CACHE_INFO["hits"] = 0
     _CACHE_INFO["misses"] = 0
     _PLAN_MEMOS.clear()
@@ -441,7 +445,8 @@ class BitmapIndex:
     def execute_many(self, queries, *, backend: str | None = None,
                      block_words: int | None = None) -> list:
         """Evaluate independent queries; circuit-family ones are compiled
-        into a single multi-output circuit and evaluated in ONE launch."""
+        into a single multi-output circuit.  On the tiled path every query
+        shares ONE tiled dispatch; on the dense path, one kernel launch."""
         qs = [as_query(q) for q in queries]
         plans = [
             Plan(backend, "caller override") if backend else self.explain(q)
@@ -463,9 +468,11 @@ class BitmapIndex:
                 backend is None and all(algs[i] == "tiled_fused" for i in batch)
             )
             if tiled:
-                # raises NotImplementedError naming the ROADMAP item
-                run_plan(self._shard_ctx(qs[batch[0]], block_words), "tiled_fused")
-            stacked = self._dense_eval(tuple(qs[i] for i in batch), block_words)
+                circ = self._circuit_for(tuple(qs[i] for i in batch))
+                stacked, info = run_tiled_circuit(self.store, circ, block_words=block_words)
+                self.last_info = info
+            else:
+                stacked = self._dense_eval(tuple(qs[i] for i in batch), block_words)
             if stacked.dim() == 1:
                 stacked = stacked[None]
             for j, i in enumerate(batch):

@@ -1,10 +1,12 @@
 """`repro_torch.storage`: the tile-classified column store.
 
-Ported so far: :class:`TileStore`'s build and statistics half (tile
-classification into all-zero / all-one / dirty, container kinds,
-per-column and member-subset statistics, the dense view on the device) and
-the container codecs it needs.  The tile-skipping executor
-(``tiled_fused``) and the block-RLE primitives are not ported yet.
+Ported so far: :class:`TileStore` (tile classification into all-zero /
+all-one / dirty, container kinds, per-column and member-subset statistics,
+the dense view on the device, the store-wide packs and their device
+mirrors, the cell and event gathers), the container codecs, and the
+tile-skipping executor :func:`run_tiled_circuit` (``tiled_fused``) with
+its ``scan`` and ``merge`` engines.  The block-RLE primitives
+(``storage/tiles.py``) are not ported yet.
 """
 
 from .containers import (
@@ -16,6 +18,7 @@ from .containers import (
     run_max_intervals,
     sparse_max_positions,
 )
+from .tiled import run_tiled_circuit
 from .tilestore import (
     TILE_DIRTY,
     TILE_ONE,
@@ -28,6 +31,7 @@ from .tilestore import (
 
 __all__ = [
     "TileStore",
+    "run_tiled_circuit",
     "ColumnStats",
     "MemberStats",
     "TILE_ZERO",

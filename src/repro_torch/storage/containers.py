@@ -21,9 +21,10 @@ run over sparse over dense).  Containers only exist for dirty tiles --
 all-zero / all-one tiles remain pure metadata, exactly as before.
 
 :func:`rasterize_toggles` turns interval endpoints into packed words with
-a branch-free prefix-XOR (it decodes run containers here; the event-native
-residual evaluation of the reference's storage engine is not ported yet --
-see ROADMAP.md).
+a branch-free prefix-XOR: it decodes run containers, and it rasterizes the
+value changes of :func:`evaluate_event_tiles`, the container-native
+residual evaluation that the tiled executor's ``merge`` engine runs on the
+host (the oracle its device ``scan`` engine is held against).
 
 This module is host-side numpy: words are ``uint32`` here and become
 ``int32`` tensors only at the device boundary (``repro_torch.device``).
@@ -54,6 +55,8 @@ __all__ = [
     "words_from_runs",
     "rasterize_toggles",
     "concat_ranges",
+    "truth_table_bits",
+    "evaluate_event_tiles",
 ]
 
 # container kind of a tile (a refinement of the word-level DIRTY class;
@@ -278,3 +281,58 @@ def compress_tiles(tiles: np.ndarray, tile_words: int, *,
     rn = kinds == CONT_RUN
     runs, roff = runs_from_words(tiles[rn])
     return kinds, dense, spos, soff, runs, roff
+
+
+def truth_table_bits(tt: int, n_inputs: int) -> np.ndarray:
+    """A circuit output's exact truth table (bigint, bit a = f(combo a))
+    as a bool lookup array of size ``2 ** n_inputs``."""
+    size = 1 << n_inputs
+    raw = tt.to_bytes(max(1, size // 8), "little")
+    return np.unpackbits(
+        np.frombuffer(raw, np.uint8), bitorder="little"
+    )[:size].astype(bool)
+
+
+def evaluate_event_tiles(rows: np.ndarray, bitpos: np.ndarray,
+                         wires: np.ndarray, m: int, tile_words: int,
+                         tables: tuple, n_inputs: int) -> np.ndarray:
+    """Container-native residual evaluation over boundary events.
+
+    Every sparse position and run interval of a tile's inputs becomes a
+    pair of *events* -- bit positions where that input toggles.  Sorting
+    the events of a tile and XOR-accumulating per-input masks yields the
+    input combination of every segment between consecutive boundaries (the
+    merge phase of MergeOpt, vectorised across all tiles at once); each
+    output's exact truth table then maps combinations to values, and the
+    value *changes* are toggles rasterized into packed words.
+
+    ``rows``/``bitpos``/``wires``: one entry per event (output tile row in
+    [0, m), position in [0, span], residual input index).  ``tables`` is
+    the tuple of per-output truth-table bigints.  Returns
+    uint32[len(tables), m, tile_words].
+    """
+    k = len(tables)
+    out = np.empty((k, m, tile_words), np.uint32)
+    order = np.lexsort((bitpos, rows))
+    rows = rows[order]
+    bitpos = bitpos[order]
+    masks = np.uint32(1) << wires[order].astype(np.uint32)
+    xacc = np.bitwise_xor.accumulate(masks) if len(masks) else masks
+    # reset the accumulator at tile-group starts: combo = xacc ^ carry-in
+    starts = np.nonzero(np.diff(rows, prepend=-1))[0]
+    if len(rows):
+        group_len = np.diff(np.append(starts, len(rows)))
+        prev = np.where(starts > 0, xacc[np.maximum(starts - 1, 0)], 0)
+        combo = xacc ^ np.repeat(prev, group_len).astype(np.uint32)
+    else:
+        combo = xacc
+    for j, tt in enumerate(tables):
+        lut = truth_table_bits(tt, n_inputs)
+        background = bool(tt & 1)  # f(all inputs zero)
+        vals = lut[combo]
+        prevv = np.roll(vals, 1)
+        prevv[starts] = background
+        chg = vals != prevv
+        words = rasterize_toggles(rows[chg], bitpos[chg], m, tile_words)
+        out[j] = ~words if background else words
+    return out

@@ -26,9 +26,11 @@ re-uploads a reconstruction).
 
 Ported: construction, classification, container kinds and storage words,
 per-column and member-subset statistics, ``append`` / ``replace`` /
-``with_tile_words``, the dense view.  The store-wide packs, the cell and
-event gathers, tile updates, slicing and the snapshot constructor belong
-to the tile-skipping executor and are not ported yet (see ROADMAP.md).
+``with_tile_words``, the dense view, and the pack/gather half that the
+tile-skipping executor (``storage.tiled``) reads: the store-wide packs and
+their device mirrors (``packs`` / ``device_packs`` / ``dirty``) and the
+cell and event gathers.  Tile updates, slicing and the snapshot
+constructor belong to later slices (see ROADMAP.md).
 
 Stores are immutable: ``append`` / ``replace`` return a new ``TileStore``
 that shares nothing mutable with the old one, so stale references keep
@@ -51,6 +53,7 @@ from .containers import (
     CONT_RUN,
     CONT_SPARSE,
     compress_tiles,
+    concat_ranges,
     containers_supported,
     words_from_runs,
     words_from_sparse,
@@ -244,6 +247,9 @@ class TileStore:
         self._dirty_np_cache: np.ndarray | None = None
         self._dirty_index_cache: np.ndarray | None = None
         self._storage_words_cell: np.ndarray | None = None
+        self._packs: dict | None = None
+        self._device_packs: tuple | None = None
+        self._dirty_dev: torch.Tensor | None = None
         self._dense = dense  # optional cached int32[N, n_words] tensor on `device`
         # bit-level metadata (RUN tags, runcounts): computed on first access
         self._refined_classes: np.ndarray | None = None
@@ -296,6 +302,167 @@ class TileStore:
                 else np.zeros((0, self.n_tiles), np.uint8)
             )
         return self._kinds_cache
+
+    def _assemble_packs(self) -> None:
+        """Store-wide per-kind packs + (column, tile) -> ordinal tables."""
+        if self._packs is not None:
+            return
+        n = len(self._cols)
+        kinds = self.container_kinds
+        p: dict = {}
+        for name, kind in (("dense", CONT_DENSE), ("sparse", CONT_SPARSE),
+                           ("run", CONT_RUN)):
+            counts = (kinds == kind).sum(axis=1)
+            offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+            index = np.full((n, self.n_tiles), -1, np.int64)
+            for i in range(n):
+                index[i, kinds[i] == kind] = offsets[i] + np.arange(counts[i])
+            p[f"{name}_index"] = index
+        p["dense_pack"] = (
+            np.concatenate([c.dense for c in self._cols])
+            if n
+            else np.zeros((0, self.tile_words), np.uint32)
+        )
+        soffs, shift = [np.zeros(1, np.int64)], 0
+        for c in self._cols:
+            soffs.append(c.soff[1:] + shift)
+            shift += c.soff[-1]
+        p["sparse_bounds"] = np.concatenate(soffs)
+        p["sparse_pack"] = (
+            np.concatenate([c.spos for c in self._cols])
+            if n else np.zeros(0, np.uint16)
+        )
+        roffs, rshift = [np.zeros(1, np.int64)], 0
+        for c in self._cols:
+            roffs.append(c.roff[1:] + rshift)
+            rshift += c.roff[-1]
+        p["run_bounds"] = np.concatenate(roffs)
+        p["run_pack"] = (
+            np.concatenate([c.runs for c in self._cols])
+            if n else np.zeros((0, 2), np.uint16)
+        )
+        self._packs = p
+
+    @property
+    def packs(self) -> dict:
+        """The store-wide per-kind packs + ordinal tables (host numpy,
+        assembled lazily): ``dense_pack``/``sparse_pack``/``sparse_bounds``/
+        ``run_pack``/``run_bounds`` and the int64[N, n_tiles]
+        ``dense_index``/``sparse_index``/``run_index`` tables."""
+        self._assemble_packs()
+        return self._packs
+
+    def device_packs(self) -> tuple:
+        """Pack mirrors on the store's device for the single-scan engine
+        (``repro_torch.kernels.tiled_scan``), uploaded once per store:
+
+        * ``dense_pack1`` int32[D + 2, tile_words] -- the dense pack plus
+          an all-zeros sentinel row at ``D`` and an all-ones row (``-1``)
+          at ``D + 1``, so clean cells gather by class without a branch;
+        * ``sparse_pack1`` uint16[S + 1] -- one zero pad entry;
+        * ``run_pack1`` uint16[R + 1, 2] -- one (0, 0) pad interval.
+
+        The uint16 packs are read as such by the kernel; the plain version
+        widens them with ``.to(torch.int32)``.
+        """
+        if self._device_packs is None:
+            self._assemble_packs()
+            p = self._packs
+            tw = self.tile_words
+            dense1 = np.concatenate([
+                p["dense_pack"],
+                np.zeros((1, tw), np.uint32),
+                np.full((1, tw), 0xFFFFFFFF, np.uint32),
+            ])
+            sparse1 = np.concatenate([p["sparse_pack"], np.zeros(1, np.uint16)])
+            run1 = np.concatenate([p["run_pack"], np.zeros((1, 2), np.uint16)])
+            self._device_packs = (
+                to_words(dense1, self.device),
+                torch.from_numpy(sparse1).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(run1)).to(self.device),
+            )
+        return self._device_packs
+
+    @property
+    def dirty(self) -> torch.Tensor:
+        """The densified dirty-tile words, int32[total_dirty, tile_words] on
+        the store's device (compressed containers expanded on first access);
+        rows are indexed by :attr:`dirty_index`."""
+        if self._dirty_dev is None:
+            self._dirty_dev = to_words(self._dirty_np, self.device)
+        return self._dirty_dev
+
+    def gather_cells(self, cols, tiles) -> np.ndarray:
+        """Materialised words of arbitrary (column, tile) cells, host
+        uint32[M, tile_words] -- container-aware: dense cells are pack
+        rows, sparse/run cells decompress, clean cells fill by class, and
+        tiles past ``n_tiles`` read all-zero."""
+        cols = np.asarray(cols, np.int64)
+        tiles = np.asarray(tiles, np.int64)
+        tw = self.tile_words
+        out = np.zeros((cols.size, tw), np.uint32)
+        inb = tiles < self.n_tiles
+        if not inb.all():
+            sel = np.nonzero(inb)[0]
+            out[sel] = self.gather_cells(cols[sel], tiles[sel])
+            return out
+        self._assemble_packs()
+        cls = self._classes_word[cols, tiles]
+        out[cls == TILE_ONE] = 0xFFFFFFFF
+        kinds = self.container_kinds[cols, tiles]
+        dn = kinds == CONT_DENSE
+        if dn.any():
+            out[dn] = self._packs["dense_pack"][
+                self._packs["dense_index"][cols[dn], tiles[dn]]
+            ]
+        sp = kinds == CONT_SPARSE
+        if sp.any():
+            s = self._packs["sparse_index"][cols[sp], tiles[sp]]
+            b = self._packs["sparse_bounds"]
+            take = concat_ranges(b[s], b[s + 1])
+            off = np.concatenate([[0], np.cumsum(b[s + 1] - b[s])])
+            out[sp] = words_from_sparse(self._packs["sparse_pack"][take], off, tw)
+        rn = kinds == CONT_RUN
+        if rn.any():
+            s = self._packs["run_index"][cols[rn], tiles[rn]]
+            b = self._packs["run_bounds"]
+            take = concat_ranges(b[s], b[s + 1])
+            off = np.concatenate([[0], np.cumsum(b[s + 1] - b[s])])
+            out[rn] = words_from_runs(self._packs["run_pack"][take], off, tw)
+        return out
+
+    def gather_events(self, cols, tiles):
+        """Boundary events of compressed (sparse/run) cells: every sparse
+        position contributes toggles at ``p`` and ``p + 1``, every run
+        interval at its endpoints.  Returns host ``(cell, bitpos)`` arrays
+        -- ``cell`` indexes the input (col, tile) pair.  Cells must be
+        SPARSE or RUN containers (the event path's precondition)."""
+        cols = np.asarray(cols, np.int64)
+        tiles = np.asarray(tiles, np.int64)
+        self._assemble_packs()
+        kinds = self.container_kinds[cols, tiles]
+        out_cell, out_pos = [], []
+        sp = kinds == CONT_SPARSE
+        if sp.any():
+            s = self._packs["sparse_index"][cols[sp], tiles[sp]]
+            b = self._packs["sparse_bounds"]
+            take = concat_ranges(b[s], b[s + 1])
+            cell = np.repeat(np.nonzero(sp)[0], b[s + 1] - b[s])
+            p = self._packs["sparse_pack"][take].astype(np.int64)
+            out_cell += [cell, cell]
+            out_pos += [p, p + 1]
+        rn = kinds == CONT_RUN
+        if rn.any():
+            s = self._packs["run_index"][cols[rn], tiles[rn]]
+            b = self._packs["run_bounds"]
+            take = concat_ranges(b[s], b[s + 1])
+            cell = np.repeat(np.nonzero(rn)[0], b[s + 1] - b[s])
+            iv = self._packs["run_pack"][take].astype(np.int64)
+            out_cell += [cell, cell]
+            out_pos += [iv[:, 0], iv[:, 1]]
+        if not out_cell:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        return np.concatenate(out_cell), np.concatenate(out_pos)
 
     @property
     def storage_words_cell(self) -> np.ndarray:

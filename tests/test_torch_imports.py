@@ -12,7 +12,8 @@ def test_port_imports_neither_jax_nor_reference():
     code = (
         "import sys; "
         "import repro_torch, repro_torch.query, repro_torch.kernels.threshold_ssum, "
-        "repro_torch.convert, repro_torch.storage, repro_torch.core.threshold; "
+        "repro_torch.convert, repro_torch.storage, repro_torch.core.threshold, "
+        "repro_torch.kernels.tiled_scan, repro_torch.storage.tiled; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]; "
         "print('BAD', bad); sys.exit(1 if bad else 0)"
@@ -40,7 +41,8 @@ def test_importing_the_port_builds_nothing():
     code = (
         "import sys, subprocess; "
         "subprocess.run = None; subprocess.Popen = None; "
-        "import repro_torch.kernels.threshold_ssum, repro_torch.kernels._build; "
+        "import repro_torch.kernels.threshold_ssum, repro_torch.kernels._build, "
+        "repro_torch.kernels.tiled_scan, repro_torch.storage.tiled; "
         "print('ok')"
     )
     env = dict(os.environ, PYTHONPATH=SRC)

@@ -182,6 +182,9 @@ def test_compiled_and_plan_caches(pair):
 
 
 def test_clean_heavy_index_plans_tiled_fused_and_says_it_is_not_ported():
+    """A clean-heavy index plans ``tiled_fused`` as the reference does, and
+    (since the route is ported) answers through it: results, plans and
+    ``last_info`` equal the reference's, batched queries included."""
     bits = clean_fraction_bits(8, 0.95, seed=5)
     ref = RQ.BitmapIndex.from_dense(jnp.asarray(bits))
     tor = index_from_reference_arrays(np.asarray(ref.columns), ref.names, ref.r, device="cpu")
@@ -189,12 +192,14 @@ def test_clean_heavy_index_plans_tiled_fused_and_says_it_is_not_ported():
         rp, tp = ref.explain(rq), tor.explain(tq)
         assert tp.algorithm == rp.algorithm == "tiled_fused"
         assert (tp.cost, tp.candidates) == (rp.cost, rp.candidates)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tor.execute(tq)
+        assert np.array_equal(u32(tor.execute(tq)), np.asarray(ref.execute(rq)))
+        assert tor.last_info == ref.last_info and tor.last_info["backend"] == "tiled_fused"
         # the dense route still answers when asked for by name
         assert np.array_equal(u32(tor.execute(tq, backend="fused")), np.asarray(ref.execute(rq)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tor.execute_many([TQ.Threshold(3), TQ.Interval(2, 5)])
+    want = ref.execute_many([RQ.Threshold(3), RQ.Interval(2, 5)])
+    got = tor.execute_many([TQ.Threshold(3), TQ.Interval(2, 5)])
+    assert np.array_equal(words_to_numpy(got), np.stack([np.asarray(w) for w in want]))
+    assert tor.last_info == ref.last_info
 
 
 @pytest.mark.parametrize("backend", sorted(UNPORTED_BACKENDS))
