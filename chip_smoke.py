@@ -12,14 +12,19 @@ What it does, one JSON object per line:
 1. ``env``          -- card name and power limit, torch / CUDA / nvcc versions,
                        seconds the kernel builds took (both built here from
                        ``src/repro_torch/kernels/csrc``, one ``nvcc`` each,
-                       started together).
+                       started together), and the registers and spilled
+                       bytes per thread of each kernel instance as
+                       ``nvcc -Xptxas -v`` reports them.
 2. ``kernels``      -- the circuit-program kernel (K1) against its plain
                        version on the card over a sweep of shapes and circuits;
                        mismatched words per case (must all be 0).
 3. ``tiled_kernels``-- the tiled block kernel (K2) against its plain version
                        over a sweep of synthetic block plans (tile widths,
                        residual widths up to 64 inputs, 1 and 4 outputs, one
-                       and several groups, every container kind).
+                       and several groups, every container kind, 90 % clean
+                       cells, all-dense and all-clean blocks, a full adder
+                       with one constant output, a wide register file, a
+                       program longer than the rows a block stages).
 4. ``main_path``    -- builds a device-resident ``BitmapIndex`` of random
                        columns and runs planner-driven ``execute`` /
                        ``execute_many`` queries (the dense ``fused`` route);
@@ -35,7 +40,9 @@ What it does, one JSON object per line:
                        are read around it.
 7. ``tiled_timing`` -- per tiled query: K2's time and bound, the event stage's
                        time, the plain version's, time to result, and the dense
-                       route's time to result on the same index.
+                       route's time to result on the same index; K2's shared
+                       memory a block and the blocks that fit on one SM
+                       (from its registers and the card's limits).
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line, and the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -107,6 +114,62 @@ def mismatches(a: torch.Tensor, b: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 
+def ptxas_start(source: str) -> subprocess.Popen:
+    """Start ``nvcc -Xptxas -v`` on ``source`` with the kernels' target and
+    optimisation flags, to a cubin in the build directory (the report is on
+    standard error; read it with :func:`ptxas_resources`)."""
+    from repro_torch.kernels import _build
+
+    os.makedirs(_build.build_dir(), exist_ok=True)
+    out = os.path.join(_build.build_dir(), f"ptxas-{os.getpid()}-{os.path.basename(source)}.cubin")
+    return subprocess.Popen([_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                             "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o", out, source],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def ptxas_resources(proc: subprocess.Popen) -> dict:
+    """Registers and spilled bytes per thread of each kernel instance, by
+    name (``tiled_block_kernel<1>``), from the report of :func:`ptxas_start`."""
+    import re
+
+    _out, err = proc.communicate()
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{err}")
+    got, name = {}, None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"([a-z][a-z_]*_kernel)ILi(\d+)E", m.group(1))
+            name = f"{t.group(1)}<{t.group(2)}>" if t else m.group(1)
+            got[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            got[name].update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            got[name]["registers"] = int(m.group(1))
+    return got
+
+
+# the limits of one SM of compute capability 9.0 (CUDA C++ Programming Guide,
+# "Technical Specifications per Compute Capability"): 64K 32-bit registers
+# allocated per warp in units of 256 over four schedulers, 2,048 threads,
+# 32 blocks, 228 KB of shared memory of which each block also holds 1 KB
+SM_REGISTERS, SM_THREADS, SM_BLOCKS, SM_SHARED, BLOCK_RESERVED_SHARED = 65536, 2048, 32, 233472, 1024
+
+
+def blocks_per_sm(registers: int, threads: int, shared: int) -> int:
+    """Blocks of ``threads`` threads at ``registers`` a thread and ``shared``
+    bytes of dynamic shared memory that fit on one SM at once."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // 256) * 256
+    by_regs = (SM_REGISTERS // per_warp) // 4 * 4 // warps
+    return min(SM_BLOCKS, SM_THREADS // (warps * 32), by_regs,
+               SM_SHARED // (shared + BLOCK_RESERVED_SHARED))
+
+
+KERNEL_RESOURCES: dict = {}
+
+
 def phase_env() -> str:
     from repro_torch.kernels import _build
 
@@ -117,14 +180,19 @@ def phase_env() -> str:
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-2:]
     t0 = time.perf_counter()
+    reports = [ptxas_start(os.path.join(ROOT, src)) for src in (K1_SOURCE, K2_SOURCE)]
     _build.build_libraries(["circuit_eval", "tiled_block"])
     for name in ("circuit_eval", "tiled_block"):
         _build.load_library(name)
+    build_s = time.perf_counter() - t0
+    for proc in reports:
+        KERNEL_RESOURCES.update(ptxas_resources(proc))
     emit("env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=" | ".join(nvcc), python=sys.version.split()[0],
-         kernel_build_seconds=round(time.perf_counter() - t0, 3),
+         kernel_build_seconds=round(build_s, 3),
          per_kernel_build_seconds={k: round(v, 3) for k, v in _build.build_seconds.items()},
-         build_dir=os.path.relpath(str(_build.build_dir()), ROOT))
+         build_dir=os.path.relpath(str(_build.build_dir()), ROOT),
+         ptxas=KERNEL_RESOURCES)
     return smi
 
 
@@ -280,30 +348,58 @@ def group_circuit(m: int, k: int, salt: int):
     return c.optimized()
 
 
-def synthetic_block_stage(store, specs, k_max: int, rng, *, dummy_share=0.1):
+def long_chain_circuit(n_terms: int):
+    """A program of many rows over few register slots: a chain of gates over
+    12 inputs, each step reading the last (1,511 rows and 25 slots at 600)."""
+    from repro_torch.core import circuits as C
+
+    c = C.Circuit(12, [], [])
+    acc = 0
+    for i in range(n_terms):
+        j = 1 + i % 11
+        if i % 2:
+            acc = c.XOR(c.AND(acc, j), c.OR(acc, (j * 5 + i // 11) % 12))
+        else:
+            acc = c.OR(c.ANDNOT(acc, j), c.AND(j, (j + 3) % 12))
+    c.outputs = [acc]
+    return c.optimized()
+
+
+def synthetic_block_stage(store, specs, k_max: int, rng, *, dummy_share=0.1, clean_share=None,
+                          kinds=None, circs=None):
     """A block-stage plan over random (column, tile) cells of ``store``:
-    ``specs`` is [(m, k, n_tiles)] per group.  Returns (stage, n_sel, gates x
-    words, cell kinds used)."""
+    ``specs`` is [(m, k, n_tiles)] per group.  ``clean_share`` draws that
+    share of the cells from clean tiles and ``kinds`` only cells of those
+    ``CELL_*`` kinds; ``circs`` replaces the groups' circuits.  Returns
+    (stage, n_sel, cell kinds used)."""
     from repro_torch.kernels import tiled_scan as TK
     from repro_torch.storage.tiled import cell_descriptors
 
     tw = store.tile_words
-    circs = tuple(group_circuit(m, k, g) for g, (m, k, _n) in enumerate(specs))
-    table = TK.program_table(circs, k_max)
-    B = TK.pick_tile_block(tw, table.n_registers, max(n for _m, _k, n in specs))
+    if circs is None:
+        circs = tuple(group_circuit(m, k, g) for g, (m, k, _n) in enumerate(specs))
+    table = TK.program_table(tuple(circs), k_max)
+    B = TK.pick_tile_block(tw, table, max(n for _m, _k, n in specs))
     m_max = max(c.n_inputs for c in circs)
     n_sel = sum(n for _m, _k, n in specs) + 5
     D = store.packs["dense_pack"].shape[0]
+    wall, tall = (a.reshape(-1) for a in np.meshgrid(np.arange(store.n), np.arange(store.n_tiles),
+                                                     indexing="ij"))
+    desc = cell_descriptors(store, wall, tall)
+    pool = np.arange(len(desc)) if kinds is None else np.nonzero(np.isin(desc[:, 0], kinds))[0]
+    clean = np.nonzero(desc[:, 0] <= TK.CELL_ONE)[0]
     gids, cells, dst = [], [], []
     tile0 = 0
     for g, (circ, (_m, _k, ng)) in enumerate(zip(circs, specs)):
         m, k = circ.n_inputs, len(circ.outputs)
         nb = -(-ng // B)
-        wg = rng.integers(0, store.n, (m, ng))
-        tg = rng.integers(0, store.n_tiles, (m, ng))
+        pick = rng.choice(pool, (m, ng))
+        if clean_share is not None:
+            swap = rng.random((m, ng)) < clean_share
+            pick[swap] = rng.choice(clean, int(swap.sum()))
         c = np.zeros((m_max, nb * B, 3), np.int64)
         c[:, :, 1] = D
-        c[:m, :ng] = cell_descriptors(store, wg, tg)
+        c[:m, :ng] = desc[pick]
         cells.append(c.reshape(m_max, nb, B, 3).transpose(1, 0, 2, 3))
         d = np.full((nb, k_max, B), -1, np.int64)
         tpos = np.arange(ng)
@@ -319,7 +415,31 @@ def synthetic_block_stage(store, specs, k_max: int, rng, *, dummy_share=0.1):
     return st, n_sel, np.bincount(cells[..., 0].reshape(-1), minlength=5)
 
 
+def full_adder_stage(store):
+    """One block whose full adder has a constant carry and a varying sum:
+    sum = 1 ^ 1 ^ c, carry = maj(1, 1, c) = 1, outputs (sum, carry | z) over
+    column 0 (all ones) twice and two dense columns.  Returns (stage, n_sel)."""
+    from repro_torch.core import circuits as C
+    from repro_torch.kernels import tiled_scan as TK
+    from repro_torch.storage.tiled import cell_descriptors
+
+    c = C.Circuit(4, [], [])
+    s, carry = c.full_adder(0, 1, 2)
+    c.outputs = [s, c.OR(carry, 3)]
+    table = TK.program_table((c,), 2)
+    B = TK.pick_tile_block(store.tile_words, table, 4)
+    cols = np.array([0, 0, 1, 2])
+    cells = cell_descriptors(store, np.repeat(cols[:, None], B, 1), np.tile(np.arange(B), (4, 1)))
+    check((cells[:2, :, 0] == TK.CELL_ONE).all() and (cells[2:, :, 0] == TK.CELL_DENSE).all(),
+          "the full-adder case's columns are all ones and dense")
+    dst = np.stack([np.arange(B), B + np.arange(B)])[None]
+    st = TK.make_block_stage(table, np.zeros(1, np.int32), cells[None], dst,
+                             store.device_packs(), B, store.tile_words)
+    return st, B
+
+
 def phase_tiled_kernels(dev) -> dict:
+    from repro_torch.core import circuits as C
     from repro_torch.core.bitmaps import pack
     from repro_torch.kernels import tiled_scan as TK
     from repro_torch.storage import TileStore
@@ -329,6 +449,28 @@ def phase_tiled_kernels(dev) -> dict:
     cases = []
     worst = 0
     kinds_seen = np.zeros(5, np.int64)
+
+    def run(name, st, n_sel, kinds=None):
+        nonlocal worst
+        buf0 = torch.randint(-(2**31), 2**31, (st.k_max, n_sel, st.tw), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        got = buf0.clone()
+        TK.block_runner(got, st)
+        torch.cuda.synchronize()
+        want = buf0.clone()
+        TK.block_plain(want, st)
+        bad = mismatches(got, want)
+        worst = max(worst, int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()))
+        written = int((got != buf0).sum().item())
+        cases.append({"case": name, "B": st.B, "blocks": st.n_blocks,
+                      "launch_shape": TK.launch_shape(st.B * st.tw),
+                      "n_registers": st.table.n_registers, "m_max": st.m_max,
+                      "program_rows": int(st.table.groups[:, 1].max()),
+                      "cells_by_kind": None if kinds is None else kinds.tolist(),
+                      "words_written": written, "mismatched_words": bad})
+        check(bad == 0, f"tiled_block case {name}: {bad} mismatched words")
+        check(written > 0, f"tiled_block case {name}: nothing written")
+
     specs = {
         "m=1 k_max=1": ([(1, 1, 7)], 1),
         "m=3,5 k_max=4": ([(3, 1, 40), (5, 4, 33)], 4),
@@ -353,23 +495,39 @@ def phase_tiled_kernels(dev) -> dict:
                 spec = [(m, k, min(n, 300)) for m, k, n in spec]
             st, n_sel, kinds = synthetic_block_stage(store, spec, k_max, rng)
             kinds_seen += kinds
-            buf0 = torch.randint(-(2**31), 2**31, (k_max, n_sel, tw), generator=gen, device=dev,
-                                 dtype=torch.int64).to(torch.int32)
-            got = buf0.clone()
-            TK.block_runner(got, st)
-            torch.cuda.synchronize()
-            want = buf0.clone()
-            TK.block_plain(want, st)
-            bad = mismatches(got, want)
-            worst = max(worst, int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()))
-            written = int((got != buf0).sum().item())
-            cases.append({"case": f"tw={tw} {name}", "B": st.B, "blocks": st.n_blocks,
-                          "launch_shape": TK.launch_shape(st.B * tw),
-                          "n_registers": st.table.n_registers, "m_max": st.m_max,
-                          "cells_by_kind": kinds.tolist(), "words_written": written,
-                          "mismatched_words": bad})
-            check(bad == 0, f"tiled_block case tw={tw} {name}: {bad} mismatched words")
-            check(written > 0, f"tiled_block case tw={tw} {name}: nothing written")
+            run(f"tw={tw} {name}", st, n_sel, kinds)
+            # mostly clean cells, as on clustered data
+            st, n_sel, kinds = synthetic_block_stage(store, spec, k_max, rng, clean_share=0.9)
+            run(f"tw={tw} {name}, 90 % clean", st, n_sel, kinds)
+        # whole blocks of one class: a padding tile is a clean cell
+        spec, k_max = ([(16, 3, 64), (40, 4, 32)], 4) if tw <= 1024 else ([(3, 1, 40), (5, 4, 32)], 4)
+        st, n_sel, kinds = synthetic_block_stage(store, spec, k_max, rng, kinds=[TK.CELL_DENSE])
+        run(f"tw={tw} all dense", st, n_sel, kinds)
+        st, n_sel, kinds = synthetic_block_stage(store, spec, k_max, rng,
+                                                 kinds=[TK.CELL_ZERO, TK.CELL_ONE])
+        run(f"tw={tw} all clean", st, n_sel, kinds)
+        # a program past the rows a block stages, at every width
+        st, n_sel, kinds = synthetic_block_stage(store, [(12, 1, 40)], 1, rng,
+                                                 circs=(long_chain_circuit(600),))
+        check(int(st.table.groups[0, 1]) > TK.STAGED_ROWS, "the long program outgrows the staging")
+        run(f"tw={tw} a program of {st.table.groups[0, 1]} rows", st, n_sel, kinds)
+        if tw == 64:
+            fb = np.zeros((3, 8 * tw * 32), bool)
+            fb[0] = True
+            fb[1:] = rng.random((2, fb.shape[1])) < 0.4
+            fstore = TileStore.from_packed(pack(torch.from_numpy(fb).to(dev), dev), tile_words=tw,
+                                           r=fb.shape[1], device=dev)
+            st, n_sel = full_adder_stage(fstore)
+            run("tw=64 full adder: carry constant, sum varying", st, n_sel)
+            # a wide register file (200 terms live at once) beside a narrow one
+            big = C.Circuit(16, [], [])
+            terms = [big.AND(i % 16, (i * 7 + 1 + i // 16) % 16) for i in range(200)]
+            big.outputs = [big.wide_or(terms)]
+            st, n_sel, kinds = synthetic_block_stage(store, [(16, 1, 40), (6, 1, 40)], 1, rng,
+                                                     clean_share=0.9,
+                                                     circs=(big, group_circuit(6, 1, 0)))
+            run(f"tw=64 a group of {st.table.groups[0, 2]} slots beside one of "
+                f"{st.table.groups[1, 2]}", st, n_sel, kinds)
     check(bool((kinds_seen > 0).all()), f"every cell kind in the sweep: {kinds_seen.tolist()}")
     emit("tiled_kernels", n_cases=len(cases), cells_by_kind=kinds_seen.tolist(),
          all_zero=all(c["mismatched_words"] == 0 for c in cases), cases=cases)
@@ -865,6 +1023,19 @@ def block_stage_work(st) -> dict:
             "gate_words": ops}
 
 
+def k2_occupancy(st) -> dict:
+    """Shared memory a block of this stage takes and the blocks that fit on
+    one SM, from the kernel instance's registers (``nvcc -Xptxas -v``)."""
+    from repro_torch.kernels import tiled_scan as TK
+
+    threads, vec = TK.launch_shape(st.B * st.tw)
+    n_rows = int(st.table.groups[:, 1].max())
+    shared = TK.block_shared_bytes(st.B, st.tw, st.table.n_registers, st.m_max, n_rows)
+    regs = KERNEL_RESOURCES[f"tiled_block_kernel<{vec}>"]["registers"]
+    return {"threads": threads, "shared_bytes": shared, "registers": regs,
+            "blocks_per_sm": blocks_per_sm(regs, threads, shared)}
+
+
 def phase_tiled_timing(idx, queries, many, reps: int) -> dict:
     from repro_torch.kernels import threshold_ssum as K
     from repro_torch.kernels import tiled_scan as TK
@@ -889,7 +1060,7 @@ def phase_tiled_timing(idx, queries, many, reps: int) -> dict:
         circ = circuit_for(tuple(qs), idx.n, names)
         run_tiled_circuit(store, circ)  # the plan is cached
         ckey = K.circuit_structural_key(circ)
-        plan = store._scan_plan_cache[(ckey, None)][0]
+        plan, info = store._scan_plan_cache[(ckey, None)]
         k, n_sel, tw = plan["k"], plan["n_sel"], plan["tw"]
         buf = plan["base"][:, :, None].expand(k, n_sel, tw).contiguous()
         rec = {"query": name, "outputs": k}
@@ -909,7 +1080,8 @@ def phase_tiled_timing(idx, queries, many, reps: int) -> dict:
                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                         "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
                         "share_of_bound": max(bytes_ms, ops_ms) / ms,
-                        "k2_plain_ms_median": statistics.median(plain)})
+                        "k2_plain_ms_median": statistics.median(plain),
+                        "decode_words": info["decode_words"], **k2_occupancy(st)})
         if plan["event"] is not None:
             ev = plan["event"]
             rec.update({"event_ms_median": statistics.median(

@@ -303,8 +303,11 @@ class ProgramTable:
     ``outs`` int32[G, k_max] the slot of each output.  A group with fewer
     than ``k_max`` outputs ends with a ``CONST`` 0 into a slot of its own,
     and its missing outputs point there.  Each program starts at its own
-    offset, and the kernel stages it in chunks counted from there, so the
-    ``PROG_CHUNK`` alignment of two-word instructions holds per program.
+    offset and is encoded as K1's are, ``NOP`` padding included; the
+    ``PROG_CHUNK`` alignment of two-word instructions matters only to the
+    circuit kernel, which stages its program in chunks.  The block kernel
+    stages a program's first rows at once and reads any later row where it
+    lies, so no alignment matters to it.
     """
 
     prog: np.ndarray

@@ -20,14 +20,16 @@ constant-fold value:
   * **Block stage** (:func:`block_runner`) -- every other case-3 tile, in
     blocks of ``B`` tiles of one residual group.  On a CUDA tensor ONE
     launch of the hand-written kernel ``csrc/tiled_block.cu`` does all of
-    it per block: decode the residual inputs from the device packs straight
-    into shared memory (dense rows copied, clean cells filled by class,
-    sparse bits set by ``atomicOr``, run endpoints toggled by ``atomicXor``
-    and filled by a warp prefix-XOR), branch on the block's group id into
-    that group's program from the program table
-    (``core.bytecode.encode_program_table``) and interpret it as the
-    circuit kernel interprets its own, then store the ``k_max`` output rows
-    to their tiles.  It replaces the reference's Pallas kernel ``_kernel``
+    it per block: stage the block's cell descriptors and the first rows of
+    its group's program in shared memory, fill the clean input words by
+    class, decode every other cell with one warp a cell straight into shared
+    memory
+    (dense rows by 16-byte ``cp.async``, sparse bits set by ``atomicOr``,
+    run endpoints toggled by ``atomicXor`` and filled by a warp
+    prefix-XOR), interpret the group's program from the program table
+    (``core.bytecode.encode_program_table``) as the circuit kernel
+    interprets its own, then store the ``k_max`` output rows to their
+    tiles.  It replaces the reference's Pallas kernel ``_kernel``
     (``src/repro/kernels/tiled_scan.py``, ``block_runner`` ->
     ``_pallas_eval``) together with the XLA decode prologue and output
     scatter around it.  :func:`block_plain` is its plain version on the
@@ -58,7 +60,6 @@ from repro_torch.core.bytecode import (
     OP_COMMIT,
     OP_LOAD,
     OP_WAIT,
-    PROG_CHUNK,
     ProgramTable,
     encode_program_table,
 )
@@ -69,12 +70,14 @@ from . import _build
 __all__ = [
     "block_runner",
     "block_plain",
+    "block_shared_bytes",
     "event_runner",
     "clear_scan_runners",
     "next_pow2",
     "pick_tile_block",
     "program_table",
     "launch_counts",
+    "launch_shape",
     "BlockStage",
     "EventStage",
     "make_block_stage",
@@ -95,6 +98,9 @@ CELL_ZERO, CELL_ONE, CELL_DENSE, CELL_SPARSE, CELL_RUN = 0, 1, 2, 3, 4
 SHARED_BYTES = 232_448
 #: words of one residual row a block spans where a tile is narrower
 BLOCK_WORDS = 256
+#: rows of a group's program a block stages in shared memory; the kernel
+#: reads the rows of a longer program past these from device memory
+STAGED_ROWS = 256
 
 # residual program tables, keyed by the circuits' structures and k_max
 _PROGRAMS: OrderedDict = OrderedDict()
@@ -111,28 +117,46 @@ def next_pow2(x: int) -> int:
     return 1 << max(0, int(x) - 1).bit_length()
 
 
-def pick_tile_block(tile_words: int, n_registers: int, max_group_tiles: int,
+def block_shared_bytes(B: int, tile_words: int, n_registers: int, m_max: int,
+                       n_rows: int) -> int:
+    """Dynamic shared memory of one block of the block kernel (bytes).
+
+    The kernel's layout (``csrc/tiled_block.cu``, which counts the same and
+    is held to this count when it loads): the block's cell descriptors
+    (``m_max * B * 3`` int32, padded to 16 bytes), the first
+    ``min(n_rows, STAGED_ROWS)`` rows of the group's program (16 bytes a
+    row), the register file ``n_registers * B * tile_words`` words."""
+    cells = (m_max * B * 3 * 4 + 15) // 16 * 16
+    return cells + min(n_rows, STAGED_ROWS) * 16 + n_registers * B * tile_words * 4
+
+
+def pick_tile_block(tile_words: int, table: ProgramTable, max_group_tiles: int,
                     shared_bytes: int = SHARED_BYTES) -> int:
-    """Tiles per block of the block kernel.
+    """Tiles per block of the block kernel for the groups of ``table``.
 
     A block spans ``BLOCK_WORDS`` words of each residual row (one per
     thread) where a tile is narrower, and holds the largest group's
-    register file ``n_registers * B * tile_words`` words in shared memory
-    beside one staged program chunk; ``B`` halves until that fits and is
-    never wider than the largest group needs.  (The reference's
+    register file, cell descriptors and the first ``STAGED_ROWS`` rows of
+    its program in shared memory (:func:`block_shared_bytes`); ``B`` halves
+    until that fits and is never wider than the largest group needs.  (The reference's
     ``LANE_WORDS`` / 2 MiB VMEM sizing is the TPU's and is not used.)
     Raises ``ValueError`` when one tile per block does not fit.
     """
+    n_regs = table.n_registers
+    m_max = int(table.groups[:, 3].max()) if len(table.groups) else 0
+    n_rows = int(table.groups[:, 1].max()) if len(table.groups) else 0
+
+    def size(b):
+        return block_shared_bytes(b, tile_words, n_regs, m_max, n_rows)
+
     b = max(1, BLOCK_WORDS // int(tile_words))
     b = min(b, next_pow2(max_group_tiles))
-    prog_bytes = PROG_CHUNK * 16
-    while b > 1 and n_registers * b * tile_words * 4 + prog_bytes > shared_bytes:
+    while b > 1 and size(b) > shared_bytes:
         b //= 2
-    if n_registers * b * tile_words * 4 + prog_bytes > shared_bytes:
+    if size(b) > shared_bytes:
         raise ValueError(
-            f"residual program needs n_registers={n_registers} slots of "
-            f"{tile_words} words: {n_registers * tile_words * 4} bytes exceed "
-            f"the {shared_bytes - prog_bytes} bytes of shared memory a block has"
+            f"residual program needs n_registers={n_regs} slots of {tile_words} words: "
+            f"{size(b)} bytes of shared memory a block, {shared_bytes} allowed"
         )
     return b
 
@@ -394,18 +418,21 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = _build.load_library("tiled_block")
-        vp, i = ctypes.c_void_p, ctypes.c_int
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.tiled_block_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                           i, i, i, i, i, i, i, i, vp]
+                                           i, i, i, i, i, i, i, i, i, vp]
         lib.tiled_block_launch.restype = i
         lib.tiled_block_max_shared.argtypes = [i]
         lib.tiled_block_max_shared.restype = i
-        lib.tiled_block_program_bytes.argtypes = []
-        lib.tiled_block_program_bytes.restype = i
+        lib.tiled_block_shared_bytes.argtypes = [i, i, i, i, i]
+        lib.tiled_block_shared_bytes.restype = ll
         lib.tiled_block_error_string.argtypes = [i]
         lib.tiled_block_error_string.restype = ctypes.c_char_p
-        if lib.tiled_block_program_bytes() != PROG_CHUNK * 16:
-            raise RuntimeError("the kernel's program chunk differs from core.bytecode.PROG_CHUNK")
+        for shape in ((1, 1, 1, 1, 0), (4, 64, 64, 64, 137), (32, 8, 5, 3, 300)):
+            if lib.tiled_block_shared_bytes(shape[3], shape[0], shape[1], shape[2],
+                                            shape[4]) != block_shared_bytes(*shape):
+                raise RuntimeError("the kernel's shared-memory layout differs from "
+                                   "tiled_scan.block_shared_bytes")
         _LIB = lib
     return _LIB
 
@@ -425,7 +452,7 @@ def launch_shape(block_words: int) -> tuple:
     """(threads per block, words per thread) covering a block's row of
     ``block_words`` words: one word a thread (measured faster than two on an
     H100, see PERF.md), two where a row is wider than 1,024 threads (tiles
-    of more than 1,024 words)."""
+    of more than 1,024 words, one a block)."""
     vec = 1 if block_words <= 1024 else 2
     threads = -(-block_words // (32 * vec)) * 32
     if threads > 1024:
@@ -446,21 +473,22 @@ def _tiled_block_cuda(buf: torch.Tensor, st: BlockStage) -> None:
         raise TypeError("packs must be int32 (dense) and uint16 (sparse, run)")
     lib = _lib()
     dev = buf.device
-    bw = st.B * st.tw
-    n_regs = st.table.n_registers
-    smem = PROG_CHUNK * 16 + n_regs * bw * 4
+    n_regs, m_max = st.table.n_registers, st.m_max
+    n_rows = int(st.table.groups[:, 1].max()) if len(st.table.groups) else 0
+    threads, vec = launch_shape(st.B * st.tw)
+    smem = block_shared_bytes(st.B, st.tw, n_regs, m_max, n_rows)
     if smem > _max_shared(dev):
         raise ValueError(
-            f"block of {st.B} tiles x {st.tw} words with n_registers={n_regs} needs "
-            f"{smem} bytes of shared memory; cuda:{dev.index} allows {_max_shared(dev)}"
+            f"block of {st.B} tiles x {st.tw} words with n_registers={n_regs}, m_max={m_max} "
+            f"and {n_rows} program rows needs {smem} bytes of shared memory; cuda:{dev.index} "
+            f"allows {_max_shared(dev)}"
         )
-    threads, vec = launch_shape(bw)
     with torch.cuda.device(dev):
         code = lib.tiled_block_launch(
             buf.data_ptr(), st.gids.data_ptr(), st.cells.data_ptr(), st.dst.data_ptr(),
             st.prog.data_ptr(), st.groups.data_ptr(), st.outs.data_ptr(),
             dense1.data_ptr(), sparse1.data_ptr(), run1.data_ptr(),
-            st.n_blocks, st.m_max, st.B, st.tw, st.k_max, n_regs, threads, vec,
+            st.n_blocks, m_max, st.B, st.tw, st.k_max, n_regs, n_rows, threads, vec,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if code != 0:

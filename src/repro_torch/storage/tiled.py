@@ -528,7 +528,7 @@ def _run_scan_pass(store, merged, base_vals, info, sel, restricted,
         k_max = max(len(b[1]) for b in bgroups)
         table = tiled_scan.program_table(circuits, k_max)
         B = tiled_scan.pick_tile_block(
-            tw, table.n_registers, max(b[4].size for b in bgroups)
+            tw, table, max(b[4].size for b in bgroups)
         )
         gids_p, cells_p, dst_p = [], [], []
         for gidx, (res, live, wg, tg, ot) in enumerate(bgroups):

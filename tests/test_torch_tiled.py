@@ -23,7 +23,7 @@ from repro.storage import containers as RCont
 from repro.storage import run_tiled_circuit as r_run
 from repro_torch import query as TQ
 from repro_torch.core import circuits as TC
-from repro_torch.core.bytecode import OP_LOAD, compile_circuit, encode_program_table
+from repro_torch.core.bytecode import OP_LOAD, ProgramTable, compile_circuit, encode_program_table
 from repro_torch.convert import index_from_reference_arrays
 from repro_torch.kernels import tiled_scan as TK
 from repro_torch.kernels.threshold_ssum import _run_program_plain
@@ -391,14 +391,27 @@ def test_program_table_runs_preloaded(kind):
     assert TK.program_table((c1, c2), k_max) is TK.program_table((c1, c2), k_max)
 
 
+def _table(n_registers, m=8, n_rows=40):
+    """A one-group program table of that shape (its instructions unused)."""
+    return ProgramTable(prog=np.zeros((n_rows, 4), np.int32),
+                        groups=np.array([[0, n_rows, n_registers, m]], np.int32),
+                        outs=np.zeros((1, 1), np.int32), k_max=1)
+
+
 def test_pick_tile_block_fits_shared_memory():
-    assert TK.pick_tile_block(64, 60, 1000) == 4  # 256 words a block
-    assert TK.pick_tile_block(8, 60, 1000) == 32
-    assert TK.pick_tile_block(8, 60, 3) == 4  # never wider than a group needs
-    assert TK.pick_tile_block(64, 200, 1000) == 4
-    assert TK.pick_tile_block(64, 400, 1000) == 2  # a large register file halves B
+    assert TK.pick_tile_block(64, _table(60), 1000) == 4  # 256 words a block
+    assert TK.pick_tile_block(8, _table(60), 1000) == 32
+    assert TK.pick_tile_block(8, _table(60), 3) == 4  # never wider than a group needs
+    assert TK.pick_tile_block(64, _table(200), 1000) == 4
+    assert TK.pick_tile_block(64, _table(400), 1000) == 2  # a large register file halves B
+    # the staged cell descriptors and program rows count too (at most
+    # STAGED_ROWS rows of a program)
+    assert TK.block_shared_bytes(4, 64, 214, 8, 40) <= TK.SHARED_BYTES
+    assert TK.block_shared_bytes(4, 64, 214, 214, 4000) > TK.SHARED_BYTES
+    assert TK.pick_tile_block(64, _table(214, m=8, n_rows=4000), 1000) == 4
+    assert TK.pick_tile_block(64, _table(214, m=214, n_rows=4000), 1000) == 2
     with pytest.raises(ValueError, match="n_registers"):
-        TK.pick_tile_block(1024, 100, 10)
+        TK.pick_tile_block(1024, _table(100), 10)
 
 
 # ---------------------------------------------------------------------------
