@@ -16,7 +16,10 @@ What it does, one JSON object per line:
                        bytes per thread of each kernel instance as
                        ``nvcc -Xptxas -v`` reports them.
 2. ``kernels``      -- the circuit-program kernel (K1) against its plain
-                       version on the card over a sweep of shapes and circuits;
+                       version on the card over a sweep of shapes and circuits
+                       (every words-a-thread instance, ragged ends of the word
+                       axis, rows on and off 16-byte boundaries, the main
+                       path's Weighted circuit at its launch shape);
                        mismatched words per case (must all be 0).
 3. ``tiled_kernels``-- the tiled block kernel (K2) against its plain version
                        over a sweep of synthetic block plans (tile widths,
@@ -32,7 +35,9 @@ What it does, one JSON object per line:
                        the whole array and with a counter oracle on a slice
                        that holds the tail; launch counts are read around it.
 5. ``timing``       -- CUDA-event medians of the fused queries, bytes moved,
-                       GB/s and the memory bound; host time of plan + dispatch.
+                       GB/s and the memory bound, K1's launch shape, blocks
+                       and word columns resident on an SM; host time of
+                       plan + dispatch.
 6. ``tiled_path``   -- a second index, clustered (runs, noise, a dense tail),
                        on which the planner picks ``tiled_fused``; every result
                        is compared with the dense route, the counter oracle
@@ -216,6 +221,8 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1234)
     cases = []
     worst = 0
+    vecs_run = set()
+    limit = K._max_shared(dev)
 
     def run(name, bm, circ, *, rows=None, oracle=None):
         nonlocal worst
@@ -227,8 +234,21 @@ def phase_kernels(dev) -> dict:
             bad += mismatches(got, oracle)
         worst = max(worst, int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
                     if got.numel() else 0)
-        cases.append({"case": name, "mismatched_words": bad})
+        p = K._program_for(circ, None if rows is None else tuple(rows))
+        threads, vec = K.pick_launch_shape(p.n_registers, limit)
+        vecs_run.add(vec)
+        cases.append({"case": name, "n_words": bm.shape[1], "n_registers": p.n_registers,
+                      "launch_shape": [threads, vec],
+                      # one VEC*4-byte copy per LOAD (else VEC 4-byte copies)
+                      "whole_copies": vec > 1 and bm.data_ptr() % (vec * 4) == 0
+                      and (bm.shape[0] == 1 or bm.stride(0) % vec == 0),
+                      "mismatched_words": bad})
         check(bad == 0, f"kernel case {name}: {bad} mismatched words")
+        return cases[-1]
+
+    def evaluated(bm, circ):  # gate by gate, no byte code
+        got = circ.evaluate(list(bm))
+        return got[0] if len(got) == 1 else torch.stack(got)
 
     for n in (2, 3, 5, 16, 64, 130):
         for nw in (1, 7, 100, 1030):
@@ -286,7 +306,6 @@ def phase_kernels(dev) -> dict:
     terms = [c.AND(i % n, (i * 7 + 1 + i // n) % n) for i in range(1000)]
     c.outputs = [c.wide_or(terms)]
     bc = compile_circuit(c)
-    limit = K._max_shared(dev)
     shape = K.pick_launch_shape(bc.n_registers, limit)
     check(shape == (32, 1), f"expected the 32-thread launch shape, got {shape} for "
                             f"{bc.n_registers} registers")
@@ -303,7 +322,63 @@ def phase_kernels(dev) -> dict:
     else:
         raise AssertionError("an oversized register file was not refused")
 
+    # programs longer than a staged chunk: a run of LOADs and a chain of gates across it
+    from repro_torch.core.bytecode import OP_LOAD, PROG_CHUNK
+
+    c = C.build_threshold_circuit(132, 44, "ssum")
+    ops = K._program_for(c, None).prog[:, 0]
+    check(any(ops[j - 1] == OP_LOAD == ops[j] for j in range(PROG_CHUNK, len(ops), PROG_CHUNK)),
+          "the 132-input program has a LOAD run across a chunk boundary")
+    bm = rand_words(gen, 132, 5003, dev)
+    run(f"a LOAD run across a chunk ({len(ops)} rows)", bm, c, oracle=ref.threshold_ref(bm, 44))
+    n = 8
+    c = C.Circuit(n, [], [])
+    acc = 0
+    for i in range(700):
+        acc = c.XOR(acc, 1 + i % (n - 1)) if i % 3 else c.AND(acc, c.OR(i % n, (i + 3) % n))
+    c.outputs = [acc]
+    bm = rand_words(gen, n, 4099, dev)
+    run(f"a chain of gates over {len(K._program_for(c, None).prog)} rows", bm, c, oracle=evaluated(bm, c))
+
+    # word counts 4k+1 .. 4k+3 with four words a thread, rows off 16-byte boundaries
+    c16 = C.build_threshold_circuit(16, 5, "ssum")
+    big = rand_words(gen, 16, 4100, dev)
+    for nw in (4097, 4098, 4099, 5, 6, 7):
+        rec = run(f"threshold 5 of 16 over {nw} words", big[:16, :nw], c16,
+                  oracle=ref.threshold_ref(big[:16, :nw], 5))
+        check(rec["launch_shape"][1] == 4 and rec["whole_copies"], f"{rec}: not 16-byte copies")
+    for off in (1, 2, 3):
+        rec = run(f"threshold 5 of 16, rows from word {off}", big[:16, off:off + 4093], c16,
+                  oracle=ref.threshold_ref(big[:16, off:off + 4093], 5))
+        check(rec["launch_shape"][1] == 4 and not rec["whole_copies"], f"{rec}: whole copies")
+    odd = rand_words(gen, 16, 4101, dev)
+    rec = run("threshold 5 of 16, row stride 4101 words", odd, c16, oracle=ref.threshold_ref(odd, 5))
+    check(not rec["whole_copies"], "a row stride off 4 words takes word copies")
+
+    # every words-a-thread instance: a wide OR of m terms holds about m slots
+    instances = {v for v, _floor in K.SHAPE_PREFERENCE}
+    for vec in sorted(instances):
+        for m in range(2, 400):
+            c = C.Circuit(n, [], [])
+            c.outputs = [c.wide_or([c.AND(i % n, (i * 3 + 1 + i // n) % n) for i in range(m)])]
+            if K.pick_launch_shape(K._program_for(c, None).n_registers, limit)[1] == vec:
+                bm = rand_words(gen, n, 9999, dev)
+                run(f"{m} terms live at once, {vec} words a thread", bm, c, oracle=evaluated(bm, c))
+                break
+    check(vecs_run == instances, f"instances run: {sorted(vecs_run)}")
+
+    # the main path's Weighted query at its launch shape
+    from repro_torch.query import Weighted
+    from repro_torch.query.index import circuit_for
+
+    names = tuple(f"s{i}" for i in range(64))
+    wq = Weighted(tuple(1 + (i * 5) % 9 for i in range(64)), 96)
+    bm = rand_words(gen, 64, 100003, dev)
+    wc = circuit_for((wq,), 64, names)
+    run("the main path's Weighted, 64 inputs", bm, wc, oracle=evaluated(bm, wc))
+
     emit("kernels", n_cases=len(cases), max_shared_bytes=limit,
+         words_per_thread_run=sorted(vecs_run),
          all_zero=all(c["mismatched_words"] == 0 for c in cases), cases=cases)
     return {"max_abs_err": worst}
 
@@ -718,6 +793,7 @@ def phase_main_path(dev, rows_log2: int, n: int, seed: int):
 
 
 def phase_timing(idx, queries, many, reps: int) -> dict:
+    from repro_torch.core.bytecode import PROG_CHUNK
     from repro_torch.kernels import threshold_ssum as K
     from repro_torch.query.index import circuit_for
 
@@ -738,9 +814,14 @@ def phase_timing(idx, queries, many, reps: int) -> dict:
         nbytes = (n_in + k) * nw * 4
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         ops_ms = len(circ.ops) * nw / PEAK_ALU_OPS_PER_S * 1e3
+        threads, vec = K.pick_launch_shape(prog.n_registers, K._max_shared(idx.device))
+        regs = KERNEL_RESOURCES[f"circuit_eval_kernel<{vec}>"]["registers"]
+        shared = PROG_CHUNK * 16 + prog.n_registers * vec * threads * 4
+        blocks = blocks_per_sm(regs, threads, shared)
         rec = {"query": name, "inputs_read": n_in, "outputs": k, "gates": len(circ.ops),
-               "n_registers": prog.n_registers,
-               "launch_shape": K.pick_launch_shape(prog.n_registers, K._max_shared(idx.device)),
+               "n_registers": prog.n_registers, "program_rows": int(prog.prog.shape[0]),
+               "launch_shape": [threads, vec], "registers": regs, "blocks_per_sm": blocks,
+               "resident_columns_per_sm": blocks * threads * vec,
                "ms_median": ms, "ms_min": min(times), "ms_max": max(times), "reps": reps,
                "bytes": nbytes, "GBps": nbytes / ms / 1e6,
                "bound_ms": max(bytes_ms, ops_ms),

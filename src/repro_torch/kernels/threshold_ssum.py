@@ -14,12 +14,14 @@ by ``run_circuit_pallas``).  The reference traces one kernel per circuit;
 here ONE kernel interprets the register-allocated byte code of
 ``core.bytecode`` (the paper's 4.4.4), because a circuit is a function of
 the query and a compiler run per query is not affordable.  Each thread owns
-a few word columns, the program's register file lives in shared memory as
-``[n_registers][columns][threads]`` (bank-conflict free), input rows enter
-it through the program's ``LOAD`` instructions as asynchronous copies
-scheduled a batch ahead of the gates that use them (by row index and row
-stride, so member subsets and strided views are not copied), and the ragged
-end of the word axis is masked in the kernel (no padded copy of the input).
+up to four consecutive word columns, the program's register file lives in
+shared memory as ``[n_registers][threads][columns]`` (one 16-byte access an
+operand, bank-conflict free), input rows enter it through the program's
+``LOAD`` instructions as asynchronous copies (16 bytes where rows are
+aligned) scheduled a batch ahead of the gates that use them (by row index
+and row stride, so member subsets and strided views are not copied), and
+the ragged end of the word axis is masked in the kernel (no padded copy of
+the input).
 
 **The plain version**, :func:`run_circuit_plain`, executes the same encoded
 program over whole rows with torch ops.  It is what runs for tensors on the
@@ -59,6 +61,8 @@ __all__ = [
     "clear_circuit_runners",
     "threshold_fused",
     "launch_counts",
+    "pick_launch_shape",
+    "SHAPE_PREFERENCE",
     "THREAD_CHOICES",
 ]
 
@@ -66,6 +70,9 @@ __all__ = [
 #: last set to 0 (incremented only where the kernel is launched)
 launch_counts = {"circuit_eval": 0}
 
+#: (word columns a thread, fewest threads a block) in the order the wrapper
+#: tries them; the kernel is built for these column counts
+SHAPE_PREFERENCE = ((4, 128), (2, 128), (1, 32))
 #: threads per block the wrapper picks from, largest first
 THREAD_CHOICES = (256, 128, 64, 32)
 
@@ -221,12 +228,14 @@ def pick_launch_shape(n_registers: int, max_shared: int) -> tuple:
     """(threads per block, word columns per thread) whose register file
     ``n_registers * columns * threads * 4`` bytes fits ``max_shared``.
 
-    Two columns per thread amortise the interpreter's decode over two words
-    (measured faster than one on an H100); they are kept while
-    at least 128 threads still fit.  Raises ``ValueError`` when even 32
+    More columns a thread amortise the interpreter's decode, address
+    arithmetic and load/store instructions over more words (measured faster
+    on an H100, PERF.md): the most columns a thread are kept while at least
+    ``floor`` threads still fit (``SHAPE_PREFERENCE``), then the most
+    threads of ``THREAD_CHOICES``.  Raises ``ValueError`` when even 32
     threads of one column do not fit.
     """
-    for vec, floor in ((2, 128), (1, 32)):
+    for vec, floor in SHAPE_PREFERENCE:
         for threads in THREAD_CHOICES:
             if threads >= floor and n_registers * vec * threads * 4 <= max_shared:
                 return threads, vec

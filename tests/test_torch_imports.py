@@ -26,7 +26,7 @@ def test_port_imports_neither_jax_nor_reference():
 def test_sources_name_neither_jax_nor_reference():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)|from\s+repro\b(?!_)"
                      r"|import\s+repro\.|from\s+repro\.)", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "k1_ab.py")]
     for base, _dirs, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 15

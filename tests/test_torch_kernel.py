@@ -127,15 +127,36 @@ def test_program_cache_is_structural_and_bounded():
     assert not K._CIRCUIT_RUNNERS
 
 
+# an H100's opt-in shared memory a block (232,448 bytes, compute capability
+# 9.0) less the kernel's staged program chunk
+H100_LIMIT = 232448 - 4096
+
+
 def test_launch_shape_choice():
-    limit = 232448 - 4096  # an H100's opt-in shared memory less the program chunk
-    assert K.pick_launch_shape(0, limit) == (256, 2)
-    assert K.pick_launch_shape(49, limit) == (256, 2)
-    assert K.pick_launch_shape(150, limit) == (128, 2)
-    assert K.pick_launch_shape(300, limit) == (128, 1)
-    assert K.pick_launch_shape(1000, limit) == (32, 1)
+    # the most columns a thread while 128 threads fit, then the most threads
+    assert K.pick_launch_shape(0, H100_LIMIT) == (256, 4)
+    assert K.pick_launch_shape(49, H100_LIMIT) == (256, 4)  # the 64-column queries: 200,704 bytes
+    assert K.pick_launch_shape(55, H100_LIMIT) == (256, 4)  # 225,280 bytes
+    assert K.pick_launch_shape(56, H100_LIMIT) == (128, 4)  # 229,376 bytes do not fit
+    assert K.pick_launch_shape(75, H100_LIMIT) == (128, 4)  # the 64-column Weighted
+    assert K.pick_launch_shape(150, H100_LIMIT) == (128, 2)
+    assert K.pick_launch_shape(300, H100_LIMIT) == (128, 1)
+    assert K.pick_launch_shape(1000, H100_LIMIT) == (32, 1)
     with pytest.raises(ValueError, match="n_registers=5000"):
-        K.pick_launch_shape(5000, limit)
+        K.pick_launch_shape(5000, H100_LIMIT)
+
+
+@pytest.mark.parametrize("n_registers", [0, 1, 16, 25, 48, 49, 50, 74, 75, 150, 300, 1000, 1784])
+def test_launch_shape_fits_and_follows_the_preference(n_registers):
+    """The picked shape's register file fits, and no shape earlier in the
+    preference order (more columns a thread, then more threads) does."""
+    def fits(threads, vec):
+        return n_registers * vec * threads * 4 <= H100_LIMIT
+
+    shape = K.pick_launch_shape(n_registers, H100_LIMIT)
+    order = [(t, v) for v, floor in K.SHAPE_PREFERENCE for t in K.THREAD_CHOICES if t >= floor]
+    assert shape in order and fits(*shape)
+    assert not any(fits(*earlier) for earlier in order[: order.index(shape)])
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
