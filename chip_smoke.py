@@ -48,6 +48,24 @@ What it does, one JSON object per line:
                        route's time to result on the same index; K2's shared
                        memory a block and the blocks that fit on one SM
                        (from its registers and the card's limits).
+8. ``calibration``  -- on the random index: ``measure_calibration()`` at the
+                       reference's shape and at 64 x 2**18 words (smaller if
+                       the host lacks the memory to generate it), the
+                       calibrated plans of four thresholds beside the
+                       uncalibrated ones, each executed and held against K1,
+                       and the ``calibration.json`` round trip with a foreign
+                       stamp refused.
+9. ``backends``     -- ``looped``, ``csvckt``, ``rbmrg_block`` on the random
+                       index, ``dsk`` on its 16 sparsest columns x 2**15
+                       words, and the five legacy shims on its first 2**16
+                       words: 0 mismatched words against K1, to-result ms.
+10. ``backends_tiled`` -- ``rbmrg_block`` on the clustered index beside the
+                       tiled route: its case split and to-result ms.
+11. ``obs``         -- ``repro_torch.obs`` on the clustered index: span trees,
+                       the kernel counters against K2's launches and the
+                       reference's decode-word count, the Prometheus lint,
+                       drift samples, and ``Interval(2,10)`` to result with
+                       tracing on and off.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line, and the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -1187,6 +1205,327 @@ def phase_tiled_timing(idx, queries, many, reps: int) -> dict:
     return headline
 
 
+# ---------------------------------------------------------------------------
+# phase 8: planner calibration measured on the card
+# ---------------------------------------------------------------------------
+
+CAL_THRESHOLDS = (2, 3, 32, 63)
+CAL_MAX_WORDS_LOG2 = 18
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels import threshold_ssum as K
+    from repro_torch.kernels import tiled_scan as TK
+
+    for counts in (K.launch_counts, TK.launch_counts):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import threshold_ssum as K
+    from repro_torch.kernels import tiled_scan as TK
+
+    return {**K.launch_counts, **TK.launch_counts}
+
+
+def to_result_ms(fn, n: int = 5) -> float:
+    """Median host time of ``fn`` through a device synchronise (ms)."""
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def calibration_words_log2(n: int) -> int:
+    """The largest n_words <= 2**18 whose host generation (a float64
+    [n, n_words * 32] array) takes at most an eighth of the free memory."""
+    free = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
+    lg = CAL_MAX_WORDS_LOG2
+    while lg > 11 and n * (2**lg) * 32 * 8 > free // 8:
+        lg -= 1
+    return lg
+
+
+def phase_calibration(idx) -> None:
+    import tempfile
+
+    from repro_torch.core.calibration import (Calibration, clear_calibration, device_signature,
+                                              get_calibration, measure_calibration,
+                                              set_calibration)
+    from repro_torch.persist import ensure_calibration, load_calibration, save_calibration
+    from repro_torch.query import Threshold
+
+    dev = idx.device
+    clear_calibration()
+    base = {t: idx.explain(Threshold(t), memo=False) for t in CAL_THRESHOLDS}
+    zero_counts()
+    t0 = time.perf_counter()
+    small = measure_calibration(device=dev)
+    t_small = time.perf_counter() - t0
+    lg = calibration_words_log2(64)
+    t0 = time.perf_counter()
+    large = measure_calibration(n=64, n_words=2**lg, device=dev)
+    t_large = time.perf_counter() - t0
+    counts = read_counts()
+    for cal in (small, large):
+        check(cal.device == device_signature(dev) == "cudax1", f"stamped {cal.device}")
+        check(set(cal.us_per_kword) == {"fused", "ssum", "tiled_fused", "looped",
+                                        "scancount_streaming", "wide_or", "wide_and"},
+              f"priced backends {sorted(cal.us_per_kword)}")
+        check(all(v > 0 and np.isfinite(v) for v in cal.us_per_kword.values()),
+              f"constants finite and positive: {cal.us_per_kword}")
+
+    set_calibration(large)
+    plans = []
+    for t in CAL_THRESHOLDS:
+        q = Threshold(t)
+        cal_plan = idx.explain(q, memo=False)
+        check(cal_plan.cost_us is not None, f"T={t}: a calibrated plan carries cost_us")
+        got = idx.execute(q, backend=cal_plan.algorithm)
+        ms = to_result_ms(lambda: idx.execute(q, backend=cal_plan.algorithm))
+        want = idx.execute(q, backend="fused")
+        bad = mismatches(got, want)
+        check(bad == 0, f"T={t}: calibrated plan {cal_plan.algorithm} differs in {bad} words")
+        plans.append({"t": t, "uncalibrated": base[t].algorithm, "cost_words": base[t].cost,
+                      "calibrated": cal_plan.algorithm, "cost_us": cal_plan.cost_us,
+                      "candidates_us": [list(c) for c in cal_plan.candidates_us],
+                      "to_result_ms": ms, "mismatched_words": bad})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_calibration(large, tmp)
+        back = load_calibration(tmp)
+        check(back is not None and back.to_obj() == large.to_obj(), "calibration round trip")
+        for stamp in ("tpux4", "cpux1"):
+            save_calibration(Calibration(device=stamp, us_per_kword={"fused": 1.0}),
+                             os.path.join(tmp, stamp))
+            check(load_calibration(os.path.join(tmp, stamp)) is None,
+                  f"a file stamped {stamp} is refused on the card")
+            check(load_calibration(os.path.join(tmp, stamp), allow_mismatch=True) is not None,
+                  f"allow_mismatch reads the {stamp} file")
+        save_calibration(Calibration.identity(), os.path.join(tmp, "identity"))
+        check(load_calibration(os.path.join(tmp, "identity")) is not None, "identity accepted")
+        got = ensure_calibration(tmp)
+        check(got.to_obj() == large.to_obj() and get_calibration() is got,
+              "ensure_calibration loads and installs the saved constants")
+        file_name = os.path.basename(str(path))
+    clear_calibration()
+    emit("calibration", default_shape={"n": 16, "n_words": 2048, "repeats": 3},
+         default_us_per_kword=small.us_per_kword, default_seconds=round(t_small, 2),
+         large_shape={"n": 64, "n_words": 2**lg, "repeats": 3},
+         large_us_per_kword=large.us_per_kword, large_seconds=round(t_large, 2),
+         device=large.device, plans_on_the_random_index=plans,
+         persisted=file_name, launch_counts=counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the remaining executors and the legacy shims on the random index
+# ---------------------------------------------------------------------------
+
+SHIM_WORDS = 2**16
+
+
+def phase_backends(idx) -> None:
+    import importlib
+
+    from repro_torch.core.threshold import threshold, weighted_threshold
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import threshold_ssum as K
+    from repro_torch.query import BitmapIndex, Interval, Threshold, Weighted
+    from repro_torch.query.index import circuit_for
+
+    symmetric = importlib.import_module("repro_torch.core.symmetric")
+    names = idx.names
+    n = idx.n
+    sparse = names[48:64] if n >= 64 else names[-16:]
+    small = BitmapIndex(idx.columns[names.index(sparse[0]):names.index(sparse[-1]) + 1,
+                                    :2**15].contiguous(), sparse, device=idx.device)
+    cases = [(idx, "looped", t) for t in (2, 3, 32)]
+    cases += [(idx, "csvckt", t) for t in (2, 32, 63)]
+    cases += [(idx, "rbmrg_block", t) for t in (2, 32)]
+    cases += [(small, "dsk", t) for t in (15, 16)]
+
+    sub = idx.columns[:, :SHIM_WORDS].contiguous()
+    dev = idx.device
+    weights = tuple(1 + i % 3 for i in range(n))
+    wt = sum(weights) // 2
+    shims = [
+        ("threshold", Threshold(32), lambda: threshold(sub, 32)),
+        ("weighted_threshold", Weighted(weights, wt), lambda: weighted_threshold(sub, weights, wt)),
+        ("symmetric.interval", Interval(2, 10), lambda: symmetric.interval(sub, 2, 10, device=dev)),
+        ("ops.fused_threshold", Threshold(32), lambda: ops.fused_threshold(sub, 32, device=dev)),
+        ("ops.fused_weighted_threshold", Weighted(weights, wt),
+         lambda: ops.fused_weighted_threshold(sub, weights, wt, device=dev)),
+    ]
+
+    zero_counts()
+    runs = []
+    for index, backend, t in cases:
+        q = Threshold(t)
+        got = index.execute(q, backend=backend)
+        engine = index.last_info["engine"]
+        ms = to_result_ms(lambda: index.execute(q, backend=backend))
+        runs.append((index, backend, t, got, engine, ms))
+    shim_runs = []
+    for name, q, fn in shims:
+        got = fn()
+        torch.cuda.synchronize()
+        shim_runs.append((name, q, got, to_result_ms(fn)))
+    counts = read_counts()
+
+    report = []
+    for index, backend, t, got, engine, ms in runs:
+        want = index.execute(Threshold(t), backend="fused")
+        bad = mismatches(got, want)
+        check(bad == 0, f"{backend} T={t}: {bad} words differ from K1")
+        check(engine == ("host" if backend == "dsk" else "dense"), f"{backend}: engine {engine}")
+        report.append({"backend": backend, "t": t, "rows": f"{index.n} x {index.n_words} words",
+                       "to_result_ms": ms, "engine": engine, "mismatched_words": bad})
+    for name, q, got, ms in shim_runs:
+        want = K.run_circuit_cached(sub, circuit_for((q,), n, names))
+        bad = mismatches(got, want)
+        check(bad == 0, f"shim {name}: {bad} words differ from K1")
+        report.append({"shim": name, "query": repr(q)[:60],
+                       "rows": f"{n} x {SHIM_WORDS} words", "to_result_ms": ms,
+                       "mismatched_words": bad})
+    check(counts["circuit_eval"] >= 3, f"the shims launched K1 {counts['circuit_eval']} times")
+    emit("backends", runs=report, launch_counts=counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: rbmrg_block on the clustered index, beside the tiled route
+# ---------------------------------------------------------------------------
+
+
+def phase_backends_tiled(idx) -> None:
+    from repro_torch.query import Threshold
+    from repro_torch.storage import rbmrg_block_threshold
+
+    names = idx.names
+    every4 = tuple(names[i] for i in range(0, idx.n, 4))
+    queries = [("threshold_2", Threshold(2), None), ("threshold_32", Threshold(32), None),
+               ("threshold_3_of_every4", Threshold(3, over=every4), every4)]
+    zero_counts()
+    runs = []
+    for name, q, over in queries:
+        got = idx.execute(q, backend="rbmrg_block")
+        rb_ms = to_result_ms(lambda: idx.execute(q, backend="rbmrg_block"))
+        tiled = idx.execute(q)
+        tiled_alg = idx.last_info["backend"]
+        tiled_ms = to_result_ms(lambda: idx.execute(q))
+        runs.append((name, q, over, got, tiled, tiled_alg, rb_ms, tiled_ms))
+    counts = read_counts()
+    report = []
+    for name, q, over, got, tiled, tiled_alg, rb_ms, tiled_ms in runs:
+        bad = mismatches(got, tiled)
+        check(bad == 0, f"rbmrg_block {name}: {bad} words differ from the tiled route")
+        check(tiled_alg == "tiled_fused", f"{name}: the planned route is {tiled_alg}")
+        rows = idx.columns if over is None else idx.columns[[names.index(c) for c in over]]
+        _out, info = rbmrg_block_threshold(rows, q.t)
+        report.append({"query": name, "case1_tiles": info["case1_tiles"],
+                       "case2_tiles": info["case2_tiles"], "case3_tiles": info["case3_tiles"],
+                       "dirty_words_processed": info["dirty_words_processed"],
+                       "work_fraction": info["work_fraction"], "rbmrg_to_result_ms": rb_ms,
+                       "tiled_to_result_ms": tiled_ms, "mismatched_words": bad})
+    emit("backends_tiled", runs=report, launch_counts=counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: observability on the query path
+# ---------------------------------------------------------------------------
+
+
+def phase_obs(idx, reps: int = 20) -> None:
+    import repro_torch.obs as obs
+    from repro_torch.kernels import tiled_scan as TK
+    from repro_torch.obs.registry import lint_prometheus
+    from repro_torch.query import Interval, Threshold, clear_compiled_cache
+
+    store = idx.store
+
+    def last_stage_words() -> int:
+        plan, _info = next(reversed(store._scan_plan_cache.values()))
+        return plan["block"].counted_decode_words if plan["block"] is not None else 0
+
+    q = Interval(2, 10)
+    many = [Threshold(2), Threshold(4), Threshold(8)]
+    obs.disable()
+    obs.reset()
+    clear_compiled_cache()  # a compile span on the first call of each circuit
+    zero_counts()
+    obs.enable()
+    trees, counted, info_words = [], 0, 0
+    for call in (lambda: idx.execute(q), lambda: idx.execute(q, backend="fused"),
+                 lambda: idx.execute_many(many)):
+        call()
+        trees.append(obs.last_trace())
+        if idx.last_info["backend"] == "tiled_fused":
+            counted += last_stage_words()
+            info_words += idx.last_info["decode_words"]
+    torch.cuda.synchronize()
+    obs.disable()
+    counts = read_counts()
+    snap = obs.REGISTRY.snapshot()
+    block_launches = snap["repro_kernel_launches_total"]["samples"].get("block", 0)
+    decode_words = snap["repro_kernel_decode_words_total"]["samples"].get("", 0)
+    prom = obs.export_prometheus()
+    problems = lint_prometheus(prom)
+    drift = obs.drift_samples()
+    executions = obs.QUERY_WALL.merged().count
+
+    def names_of(sp):
+        return [s.name for s in sp.iter()]
+
+    tiled_tree, fused_tree, many_tree = trees
+    check(tiled_tree.name == "execute" and fused_tree.name == "execute", "execute roots")
+    check(many_tree.name == "execute_many", f"execute_many root, got {many_tree.name}")
+    for label, tree in (("tiled", tiled_tree), ("fused", fused_tree), ("many", many_tree)):
+        got = names_of(tree)
+        check("dispatch" in got, f"{label}: a dispatch span in {got}")
+        check(("compile" in got) or any(s.attrs.get("compile_cache") == "hit" for s in tree.iter()),
+              f"{label}: a compile span or a compile-cache hit in {got}")
+    check("plan" in names_of(tiled_tree) and "plan" in names_of(many_tree),
+          "the planned queries have plan spans")
+    check("compile" in names_of(tiled_tree), "the first call compiles")
+    check("decode" in names_of(tiled_tree) and "decode" in names_of(many_tree),
+          "the tiled dispatches carry a decode span")
+    check("decode" not in names_of(fused_tree), "the dense dispatch has no decode span")
+    check(tiled_tree.find("dispatch").attrs["backend"] == "tiled_fused", "planned tiled_fused")
+    check(block_launches == counts["tiled_block"] and block_launches > 0,
+          f"block stage counter {block_launches}, K2 launches {counts['tiled_block']}")
+    check(counts["circuit_eval"] == 1, f"one K1 launch (the fused query), {counts}")
+    check(decode_words == counted,
+          f"decode-words counter {decode_words}, the plans' reference count {counted}")
+    check(problems == [], f"prometheus lint: {problems[:3]}")
+    check(drift == 2 and executions == 3,
+          f"drift samples {drift} (2 priced executions), wall samples {executions} (3)")
+
+    # the tracing cost: the same query with obs on and off, in turns
+    on, off = [], []
+    for _ in range(reps):
+        for enabled, out in ((True, on), (False, off)):
+            if enabled:
+                obs.enable()
+            t0 = time.perf_counter()
+            idx.execute(q)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            obs.disable()
+    obs.reset()
+    emit("obs", span_trees={"tiled": tiled_tree.format(), "fused": fused_tree.format(),
+                            "execute_many": many_tree.format()},
+         block_launches_counter=block_launches, k2_launches=counts["tiled_block"],
+         decode_words_counter=decode_words, decode_words_reference_count=counted,
+         decode_words_exec_info=info_words, drift_samples=drift, executions=executions,
+         prometheus_lines=len(prom.splitlines()),
+         interval_2_10_to_result_ms={"obs_on_median": statistics.median(on),
+                                     "obs_off_median": statistics.median(off), "reps": reps},
+         launch_counts=counts)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-log2", type=int, default=27,
@@ -1222,11 +1561,15 @@ def main() -> int:
     idx, queries, many, counts = timed("main_path", phase_main_path, dev, args.rows_log2,
                                        args.columns, args.seed)
     head = timed("timing", phase_timing, idx, queries, many, args.reps)
+    timed("calibration", phase_calibration, idx)
+    timed("backends", phase_backends, idx)
     n_words_dense = idx.n_words
     del idx
     tidx, tqueries, tmany, tcounts = timed("tiled_path", phase_tiled_path, dev,
                                            args.tiled_rows_log2, args.columns, args.seed)
     thead = timed("tiled_timing", phase_tiled_timing, tidx, tqueries, tmany, args.reps)
+    timed("backends_tiled", phase_backends_tiled, tidx)
+    timed("obs", phase_obs, tidx)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port must not import jax or the reference package")
 

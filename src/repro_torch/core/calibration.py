@@ -13,18 +13,24 @@ roofline constants
     ``cost_us(backend, words) = dispatch_us[backend]
                                 + words * us_per_kword[backend] / 1024``
 
-fed back from real executions as they happen
-(:meth:`Calibration.observe`, an EWMA).  The one-off measurement pass of
-the reference (``measure_calibration``) is not ported yet; see ROADMAP.md.  When a calibration is installed
-(:func:`set_calibration`), ``plan_threshold`` ranks its min-cost
-candidates by calibrated microseconds instead of raw words, and every
+obtained either from a one-off measurement pass
+(:func:`measure_calibration` -- small timed executions per backend on a
+synthetic index, on the device the index would run on) or fed back from
+real executions as they happen (:meth:`Calibration.observe`, an EWMA).
+When a calibration is installed (:func:`set_calibration`),
+``plan_threshold`` ranks its min-cost candidates by calibrated
+microseconds instead of raw words, and every
 :class:`~repro_torch.core.planner.Plan` carries both scales (``cost`` /
 ``candidates`` in words, ``cost_us`` / ``candidates_us`` in µs).
 
+Constants persist as JSON (``repro_torch.persist.calibration``), stamped
+with :func:`device_signature`, so a restarted server skips the
+measurement pass and never prices with another device's constants.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -35,9 +41,10 @@ __all__ = [
     "set_calibration",
     "clear_calibration",
     "calibration_generation",
+    "measure_calibration",
 ]
 
-#: backends a uniform calibration prices by default: the device circuit
+#: backends the measurement pass times by default: the device circuit
 #: family's representatives plus the specialised paths the planner emits
 DEFAULT_BACKENDS = (
     "fused",
@@ -225,3 +232,70 @@ def set_calibration(calib: Calibration | None) -> None:
 
 def clear_calibration() -> None:
     set_calibration(None)
+
+
+# ---------------------------------------------------------------------------
+# Measurement pass
+# ---------------------------------------------------------------------------
+
+
+def measure_calibration(
+    backends=DEFAULT_BACKENDS,
+    *,
+    n: int = 16,
+    n_words: int = 2048,
+    repeats: int = 3,
+    seed: int = 0,
+    device=None,
+) -> Calibration:
+    """Time each backend on a small synthetic index and derive constants.
+
+    The index lives on ``device`` (default: the CUDA card).  One warm-up
+    execution per backend absorbs kernel builds and plan caches, then the
+    median of ``repeats`` timed runs -- host wall clock around ``execute``
+    and a device synchronise, the time the planner prices -- divides the
+    words the planner's own model says the backend touches: the constant
+    is the words->µs exchange rate that makes ``Plan.cost`` comparable
+    across backends on THIS device.  A backend the model cannot price is
+    skipped; a backend that fails raises (every name in
+    ``DEFAULT_BACKENDS`` runs on every device).
+    """
+    import numpy as np
+
+    from repro_torch.core.planner import estimate_words_touched
+    from repro_torch.device import resolve_device
+    from repro_torch.query import BitmapIndex, Threshold
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    rng = np.random.default_rng(seed)
+    # mixed-density columns so the tiled path has real dirty tiles to price
+    bits = rng.random((n, n_words * 32)) < rng.uniform(0.05, 0.5, (n, 1))
+    bits[: max(1, n // 4), : (n_words * 16)] = False  # some clean territory
+    idx = BitmapIndex.from_dense(bits, device=dev)
+    stats = idx.store.member_stats(None)
+    calib = Calibration(device=device_signature(dev))
+    for backend in backends:
+        t = {"wide_or": 1, "wide_and": n}.get(backend, max(2, n // 2))
+        q = Threshold(t)
+        words = estimate_words_touched(
+            backend, n, t, n_words=n_words, stats=stats, density=stats.density
+        )
+        if words is None:
+            continue
+        idx.execute(q, backend=backend)  # warm-up
+        sync()
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            idx.execute(q, backend=backend)
+            sync()
+            times.append(time.perf_counter() - t0)
+        med = sorted(times)[len(times) // 2]
+        calib.us_per_kword[backend] = med * 1e6 * 1024.0 / float(words)
+        calib.samples[backend] = repeats
+    return calib

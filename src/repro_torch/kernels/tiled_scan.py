@@ -45,7 +45,12 @@ Words are ``int32`` with the reference's ``uint32`` bits: every logical
 right shift is ``(x >> s) & mask``.
 
 ``launch_counts["tiled_block"]`` counts the block kernel's launches (and
-nothing else).
+nothing else).  With :mod:`repro_torch.obs` enabled, each stage also adds
+to the reference's counters ``repro_kernel_launches_total{stage=block|
+event}``, ``repro_kernel_decode_words_total`` and
+``repro_kernel_event_toggles_total``, with the reference's values for the
+same plan (:func:`reference_decode_words`; the reference counts its toggle
+array padded to a power of two).
 """
 from __future__ import annotations
 
@@ -64,6 +69,7 @@ from repro_torch.core.bytecode import (
     encode_program_table,
 )
 from repro_torch.device import WORD_DTYPE
+from repro_torch.obs import REGISTRY as _OBS
 
 from . import _build
 
@@ -81,11 +87,37 @@ __all__ = [
     "BlockStage",
     "EventStage",
     "make_block_stage",
+    "reference_decode_words",
 ]
 
 #: launches of the block kernel since the count was last set to 0
 #: (incremented only where the kernel is launched)
 launch_counts = {"tiled_block": 0}
+
+# dispatch accounting on the process registry (no-op until obs.enable()):
+# stage dispatches per kind, words the decode stages, and event toggles
+# merged -- the reference's names, labels and values
+_LAUNCHES = _OBS.counter(
+    "repro_kernel_launches_total", "Device kernel dispatches", ("stage",),
+)
+_DECODE_WORDS = _OBS.counter(
+    "repro_kernel_decode_words_total",
+    "Dense-equivalent words staged by the in-kernel container decode",
+)
+_EVENT_TOGGLES = _OBS.counter(
+    "repro_kernel_event_toggles_total",
+    "Boundary toggles merged by the event stage",
+)
+# label keys pre-bound once: the stages inc these per dispatch
+_LAUNCH_BLOCK = _LAUNCHES.bind(stage="block")
+_LAUNCH_EVENT = _LAUNCHES.bind(stage="event")
+_DECODE_WORDS_B = _DECODE_WORDS.bind()
+_EVENT_TOGGLES_B = _EVENT_TOGGLES.bind()
+
+# the reference's block sizing (a TPU lane of 1024 words, 2 MiB of VMEM),
+# kept only to count its decode words
+_REF_LANE_WORDS = 1024
+_REF_VMEM_BYTES = 2 * 1024 * 1024
 
 # per-cell descriptor kinds of the block stage: (kind, a, b) per
 # (block, wire, tile).  ZERO / ONE / DENSE read row ``a`` of the
@@ -115,6 +147,22 @@ def clear_scan_runners() -> None:
 def next_pow2(x: int) -> int:
     """Smallest power of two >= max(x, 1)."""
     return 1 << max(0, int(x) - 1).bit_length()
+
+
+def reference_decode_words(tile_words: int, m_max: int, k_max: int,
+                           group_tiles) -> int:
+    """The reference's ``repro_kernel_decode_words_total`` increment for a
+    block stage: it counts every cell of its padded cell table, ``nb_pad *
+    m_max * B * tile_words`` words, where ``B`` is its VMEM-sized tiles per
+    block and ``nb_pad`` the power of two at or above its block count.  The
+    port pads nothing (its ``B`` is sized for shared memory), so the count
+    is reproduced from the plan's group sizes ``group_tiles``."""
+    b = max(1, _REF_LANE_WORDS // tile_words)
+    while b > 1 and (m_max + k_max) * b * tile_words * 8 > _REF_VMEM_BYTES:
+        b //= 2
+    b = max(1, min(b, next_pow2(max(group_tiles))))
+    nb = sum(-(-int(g) // b) for g in group_tiles)
+    return next_pow2(nb) * m_max * b * tile_words
 
 
 def block_shared_bytes(B: int, tile_words: int, n_registers: int, m_max: int,
@@ -248,11 +296,16 @@ class EventStage:
     mm: int
     n_wires: int
     tw: int
+    #: the reference's toggle count for this stage: its padded toggle array
+    counted_toggles: int = 0
 
 
 def event_runner(buf: torch.Tensor, st: EventStage) -> None:
     """Run the event stage into ``buf`` (int32[k, n_sel, tw], in place):
     every output of every event row at once, about thirty torch ops."""
+    if _OBS.enabled:
+        _LAUNCH_EVENT.inc(1)
+        _EVENT_TOGGLES_B.inc(st.counted_toggles)
     tw, mm, k_max = st.tw, st.mm, st.k_max
     stride = tw * 32 + 2
     keys, mask, lut, gid_row = st.keys, st.mask, st.lut, st.gid_row
@@ -326,6 +379,8 @@ class BlockStage:
     packs: tuple
     B: int
     tw: int
+    #: the reference's decode-word count (:func:`reference_decode_words`)
+    counted_decode_words: int = 0
 
     @property
     def n_blocks(self) -> int:
@@ -341,7 +396,8 @@ class BlockStage:
 
 
 def make_block_stage(table: ProgramTable, gids: np.ndarray, cells: np.ndarray,
-                     dst: np.ndarray, packs: tuple, B: int, tw: int) -> BlockStage:
+                     dst: np.ndarray, packs: tuple, B: int, tw: int,
+                     counted_decode_words: int = 0) -> BlockStage:
     """A :class:`BlockStage` from host plan arrays, uploaded to the packs'
     device as contiguous int32."""
     dev = packs[0].device
@@ -356,6 +412,7 @@ def make_block_stage(table: ProgramTable, gids: np.ndarray, cells: np.ndarray,
         gids=up(gids), cells=up(cells), dst=up(dst), table=table,
         prog=up(table.prog), groups=up(table.groups), outs=up(table.outs),
         packs=tuple(packs), B=int(B), tw=int(tw),
+        counted_decode_words=int(counted_decode_words),
     )
 
 
@@ -503,6 +560,9 @@ def _tiled_block_cuda(buf: torch.Tensor, st: BlockStage) -> None:
 def block_runner(buf: torch.Tensor, st: BlockStage) -> None:
     """The block stage where ``buf`` lies: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
+    if _OBS.enabled:
+        _LAUNCH_BLOCK.inc(1)
+        _DECODE_WORDS_B.inc(st.counted_decode_words)
     if buf.is_cuda:
         _tiled_block_cuda(buf, st)
     else:

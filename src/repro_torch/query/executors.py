@@ -12,11 +12,15 @@ Every algorithm name the planner can emit resolves here:
     (``storage.tiled.run_tiled_circuit``): clean tiles fold to constants,
     the rest run in at most two dispatches (event stage + the block
     kernel of ``kernels.tiled_scan``)
+  * looped / csvckt         -- the paper's LOOPED and CSVCKT (plain tensor
+    ops, ``core.threshold``)
   * wide_or / wide_and      -- the T=1 / T=N degenerate reductions
   * column                  -- a view of one row
-  * rbmrg_block, dsk, looped, csvckt -- not ported yet: they raise
-    ``NotImplementedError`` naming the ROADMAP.md item that ports them.
-    No other backend is substituted.
+  * rbmrg_block             -- tile-level clean/dirty pruning on the rows'
+    device, bare thresholds only (``storage.tiles``; tiled_fused
+    generalises it)
+  * dsk                     -- DivideSkip over host position lists
+    (``core.listalgos``), for the paper's sparse, T~N regime
 
 Backends are *shard-local* functions: they see one :class:`ShardContext`
 (the tile store, dense view, compiled circuit and bare-threshold shape of
@@ -27,7 +31,6 @@ context.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable
 
 import torch
@@ -38,7 +41,6 @@ from repro_torch.query.execinfo import make_exec_info
 
 __all__ = [
     "THRESHOLD_BACKENDS",
-    "UNPORTED_BACKENDS",
     "ShardContext",
     "run_plan",
     "run_threshold_backend",
@@ -53,25 +55,11 @@ THRESHOLD_BACKENDS = _DEVICE_ALGOS + (
     "fused", "tiled_fused", "wide_or", "wide_and", "rbmrg_block", "dsk",
 )
 
-#: backends of the reference that the port does not run yet -> the ROADMAP.md
-#: item that ports them
-UNPORTED_BACKENDS = {
-    "rbmrg_block": "ROADMAP.md Queue 1 item 3 (remaining executors backends)",
-    "dsk": "ROADMAP.md Queue 1 item 3 (remaining executors backends, with core/listalgos.py)",
-    "looped": "ROADMAP.md Queue 1 item 3 (remaining executors backends)",
-    "csvckt": "ROADMAP.md Queue 1 item 3 (remaining executors backends)",
-}
-
-
-def _not_ported(alg: str):
-    return NotImplementedError(
-        f"backend {alg!r} is not ported to repro_torch yet; see {UNPORTED_BACKENDS[alg]}"
-    )
-
-
 def _device_threshold(bitmaps: torch.Tensor, t: int, algorithm: str) -> torch.Tensor:
     from repro_torch.core.threshold import (
         _circuit_threshold,
+        _csvckt,
+        _looped,
         _scancount,
         _scancount_streaming,
     )
@@ -80,6 +68,10 @@ def _device_threshold(bitmaps: torch.Tensor, t: int, algorithm: str) -> torch.Te
         return _scancount(bitmaps, t)
     if algorithm == "scancount_streaming":
         return _scancount_streaming(bitmaps, t)
+    if algorithm == "looped":
+        return _looped(bitmaps, t)
+    if algorithm == "csvckt":
+        return _csvckt(bitmaps, t)
     return _circuit_threshold(bitmaps, t, algorithm)
 
 
@@ -97,6 +89,18 @@ def _wide_or(bitmaps: torch.Tensor) -> torch.Tensor:
 
 def _wide_and(bitmaps: torch.Tensor) -> torch.Tensor:
     return _fold(bitmaps, torch.bitwise_and)
+
+
+def _dsk_threshold(bitmaps: torch.Tensor, t: int) -> torch.Tensor:
+    """Host DivideSkip over per-bitmap sorted position lists; the result
+    goes back to the rows' device."""
+    from repro_torch.core.bitmaps import from_positions, to_positions_np
+    from repro_torch.core.listalgos import dsk
+
+    arr = bitmaps.cpu()
+    r = arr.shape[1] * 32
+    lists = [to_positions_np(row) for row in arr]
+    return from_positions(dsk(lists, t, r), r, device=bitmaps.device)
 
 
 @dataclasses.dataclass
@@ -157,8 +161,9 @@ def run_plan(ctx: ShardContext, plan):
 
     ``plan`` is a ``core.planner.Plan`` or a backend name.  Returns
     ``(packed result, info)`` -- ``info`` is an ExecInfo
-    (:mod:`repro_torch.query.execinfo`), a dense-traffic accounting for
-    every backend ported so far.  Every backend resolves through here;
+    (:mod:`repro_torch.query.execinfo`): the tiled executor's case-split
+    accounting when it ran, a dense-traffic accounting for every other
+    backend.  Every backend resolves through here;
     callers own device placement, backends own compute.
     """
     alg = getattr(plan, "algorithm", plan)
@@ -181,8 +186,6 @@ def run_plan(ctx: ShardContext, plan):
             engine=ctx.tiled_engine,
         )
     if alg in THRESHOLD_BACKENDS and ctx.bare is not None:
-        if alg in UNPORTED_BACKENDS:
-            raise _not_ported(alg)
         slots, t = ctx.bare
         if alg == "fused":
             # member subsets are read in place: the program indexes the rows
@@ -193,7 +196,8 @@ def run_plan(ctx: ShardContext, plan):
             rows = ctx.member_rows()
             out = run_threshold_backend(rows, t, alg, block_words=ctx.block_words)
             n_rows = rows.shape[0]
-        return out, _dense_exec_info(alg, "dense", int(n_rows), out)
+        engine = "host" if alg == "dsk" else "dense"
+        return out, _dense_exec_info(alg, engine, int(n_rows), out)
     if alg in CIRCUIT_BACKENDS:
         from repro_torch.kernels.threshold_ssum import run_circuit_cached
 
@@ -210,18 +214,10 @@ def run_plan(ctx: ShardContext, plan):
     raise ValueError(f"unknown backend {alg!r}")
 
 
-@functools.lru_cache(maxsize=1024)
-def _threshold_circuit(n: int, t: int):
-    """The (N, T) sideways-sum circuit, tabulated once per process: building
-    and optimising it takes longer on the host than the kernel runs."""
-    from repro_torch.core.circuits import build_threshold_circuit
-
-    return build_threshold_circuit(n, t, "ssum")
-
-
 def _fused_threshold(bitmaps: torch.Tensor, t: int, slots=None) -> torch.Tensor:
     """theta(T, .) over rows ``slots`` of ``bitmaps`` (default all) through
     the circuit-program kernel, with the reference's vacuous short cuts."""
+    from repro_torch.core.threshold import _tabulated_circuit
     from repro_torch.kernels.threshold_ssum import run_circuit_cached
 
     n = bitmaps.shape[0] if slots is None else len(slots)
@@ -229,7 +225,7 @@ def _fused_threshold(bitmaps: torch.Tensor, t: int, slots=None) -> torch.Tensor:
         return torch.full_like(bitmaps[0], -1)
     if t > n:
         return torch.zeros_like(bitmaps[0])
-    return run_circuit_cached(bitmaps, _threshold_circuit(n, t), rows=slots)
+    return run_circuit_cached(bitmaps, _tabulated_circuit(n, t, "ssum"), rows=slots)
 
 
 def run_threshold_backend(bitmaps, t: int, backend: str, *,
@@ -262,8 +258,11 @@ def run_threshold_backend(bitmaps, t: int, backend: str, *,
         if t != n:
             raise ValueError(f"wide_and computes theta(N, .); got T={t}, N={n}")
         return _wide_and(bitmaps)
-    if backend in UNPORTED_BACKENDS:
-        raise _not_ported(backend)
+    if backend == "rbmrg_block":
+        from repro_torch.storage import rbmrg_block_threshold
+
+        out, _info = rbmrg_block_threshold(bitmaps, t)
+        return out
     if backend == "tiled_fused":
         from repro_torch.core.circuits import build_threshold_circuit
         from repro_torch.storage import TileStore, run_tiled_circuit
@@ -272,6 +271,8 @@ def run_threshold_backend(bitmaps, t: int, backend: str, *,
         circ = build_threshold_circuit(n, t, "ssum")
         out, _info = run_tiled_circuit(store, circ, block_words=block_words)
         return out
+    if backend == "dsk":
+        return _dsk_threshold(bitmaps, t)
     if backend == "fused":
         return _fused_threshold(bitmaps, t)
     if backend in _DEVICE_ALGOS:

@@ -30,22 +30,31 @@ planning and executing correctly against their own schema.
 Compiled circuits are cached per process by (query shape, column names);
 their encoded programs are cached by circuit *structure* underneath
 (``kernels.threshold_ssum``).  Data never enters either key, so every
-index with the same schema shares both layers.  Sharding, persistence and
-the observability spans of the reference are not ported yet.
+index with the same schema shares both layers.  Sharding and persistence
+of the reference are not ported yet.
+
+**Observability**: with :mod:`repro_torch.obs` enabled, ``execute`` /
+``execute_many`` emit the reference's span trees (plan / compile /
+dispatch / decode) and one calibration-drift record per execution.  Span
+wall times are host time around the enqueue: nothing here synchronises
+with the card, so a span never measures the kernel.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time as _time
 import weakref
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
+import repro_torch.obs as _obs
 from repro_torch.core.bitmaps import cardinality, pack, packed_tail_mask
 from repro_torch.core.planner import CIRCUIT_BACKENDS, Plan, plan_query
 from repro_torch.device import resolve_device, to_words
+from repro_torch.obs import trace as _trace
 from repro_torch.storage import TileStore, run_tiled_circuit
 
 from .compile import build_query_circuit
@@ -176,11 +185,48 @@ def circuit_for(qs: tuple, n: int, names: tuple):
     circ = _CIRCUITS.get(key)
     if circ is not None:
         _CACHE_INFO["hits"] += 1
+        if _trace.enabled:
+            # steady-state hit: annotate the open span instead of paying a
+            # zero-duration child span per request
+            _trace.current_span().set(compile_cache="hit")
         return circ
     _CACHE_INFO["misses"] += 1
-    circ = build_query_circuit(qs, n, names)
+    with _trace.span("compile", cache="miss") as sp:
+        circ = build_query_circuit(qs, n, names)
+        sp.set(n_outputs=len(getattr(circ, "outputs", ())) or len(qs))
     _CIRCUITS[key] = circ
     return circ
+
+
+def _annotate_dispatch(sp, info: dict) -> None:
+    """Copy an ExecInfo's dispatch + decode accounting onto the span tree:
+    the dispatch span carries the engine / launch / case-split numbers, a
+    child ``decode`` span the container-decode traffic (decode happens
+    inside the block kernel, so its span carries words rather than time).
+    Backends that never decode containers (dense / host paths) carry their
+    word accounting directly on the dispatch span instead."""
+    sp.set(
+        engine=info.get("engine"),
+        launches=info.get("launches"),
+        case3_tiles=info.get("case3_tiles"),
+        const_tiles=info.get("const_tiles"),
+        event_tiles=info.get("event_tiles"),
+        measured_words=info.get("words_touched"),
+    )
+    if info.get("backend") != "tiled_fused":
+        sp.set(
+            dirty_words_gathered=info.get("dirty_words_gathered"),
+            words_by_kind=dict(info.get("words_by_kind") or {}),
+        )
+        return
+    with _trace.span("decode") as dec:
+        dec.set(
+            decode_words=info.get("decode_words"),
+            densified_tiles=info.get("densified_tiles"),
+            compressed_words_gathered=info.get("compressed_words_gathered"),
+            dirty_words_gathered=info.get("dirty_words_gathered"),
+            words_by_kind=dict(info.get("words_by_kind") or {}),
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +448,18 @@ class BitmapIndex:
         skip planning entirely; ``plan.memo`` reports "hit"/"miss" and
         :func:`plan_memo_info` the process-wide counters.  ``memo=False``
         bypasses (and does not populate) the memo."""
-        return self._explain(as_query(query), memo)
+        q = as_query(query)
+        with _trace.span("plan") as sp:
+            plan = self._explain(q, memo)
+            if _trace.enabled:
+                sp.set(
+                    algorithm=plan.algorithm,
+                    memo=plan.memo,
+                    predicted_words=plan.cost,
+                    predicted_us=plan.cost_us,
+                    candidates=plan.candidates or (),
+                )
+        return plan
 
     def _explain(self, q: Query, memo: bool) -> Plan:
         fused = self._fused_available()
@@ -437,10 +494,37 @@ class BitmapIndex:
         """Evaluate one expression; returns a packed (tail-masked) bitmap.
 
         ``block_words`` is kept for parity with the reference's call sites
-        and is unused: the CUDA kernel sizes its blocks itself."""
+        and is unused: the CUDA kernel sizes its blocks itself.
+
+        With :mod:`repro_torch.obs` enabled, each call produces a span tree
+        (plan / compile / dispatch / decode) carrying the plan's predicted
+        words next to the executor's measured words, and records one
+        calibration-drift observation; the wall time is the host's (the
+        kernels are enqueued, not waited for)."""
         q = as_query(query)
-        plan = Plan(backend, "caller override") if backend else self.explain(q)
-        return self._mask(self._run(q, plan.algorithm, block_words))
+        active = _trace.enabled or _obs.REGISTRY.enabled
+        t0 = _time.perf_counter() if active else 0.0
+        with _trace.span("execute") as root:
+            plan = Plan(backend, "caller override") if backend else self.explain(q)
+            out = self._mask(self._run(q, plan.algorithm, block_words))
+            if active:
+                self._observe(root, plan, self.last_info, _time.perf_counter() - t0)
+        return out
+
+    def _observe(self, root, plan, info, wall_s: float) -> None:
+        """Annotate the root span with predicted vs measured words and feed
+        the drift metric (called with obs tracing or metrics enabled)."""
+        measured = info.get("words_touched") if isinstance(info, dict) else None
+        if _trace.enabled:
+            root.set(
+                backend=plan.algorithm,
+                predicted_words=plan.cost,
+                predicted_us=plan.cost_us,
+                measured_words=measured,
+            )
+        _obs.record_drift(
+            str(plan.algorithm), plan.cost, measured if measured is not None else 0, wall_s,
+        )
 
     def execute_many(self, queries, *, backend: str | None = None,
                      block_words: int | None = None) -> list:
@@ -448,38 +532,77 @@ class BitmapIndex:
         into a single multi-output circuit.  On the tiled path every query
         shares ONE tiled dispatch; on the dense path, one kernel launch."""
         qs = [as_query(q) for q in queries]
-        plans = [
-            Plan(backend, "caller override") if backend else self.explain(q)
-            for q in qs
-        ]
-        algs = [p.algorithm for p in plans]
-        batch: list[int] = []
-        # an explicit non-circuit backend override is honoured per query;
-        # batching only applies when the circuit family does the work
-        if backend is None or backend in CIRCUIT_BACKENDS:
+        active = _trace.enabled or _obs.REGISTRY.enabled
+        with _trace.span("execute_many", n_queries=len(qs)) as root:
+            plans = [
+                Plan(backend, "caller override") if backend else self.explain(q)
+                for q in qs
+            ]
+            algs = [p.algorithm for p in plans]
+            batch: list[int] = []
+            # an explicit non-circuit backend override is honoured per query;
+            # batching only applies when the circuit family does the work
+            if backend is None or backend in CIRCUIT_BACKENDS:
+                for i, (q, alg) in enumerate(zip(qs, algs)):
+                    if alg in CIRCUIT_BACKENDS or (
+                        alg in _BATCHABLE and self._bare_slots(q) is not None
+                    ):
+                        batch.append(i)
+            results: dict[int, torch.Tensor] = {}
+            if len(batch) > 1:
+                tiled = backend == "tiled_fused" or (
+                    backend is None and all(algs[i] == "tiled_fused" for i in batch)
+                )
+                if tiled:
+                    tdisp = _time.perf_counter() if active else 0.0
+                    with _trace.span("dispatch", backend="tiled_fused", batched=len(batch)) as sp:
+                        circ = self._circuit_for(tuple(qs[i] for i in batch))
+                        stacked, info = run_tiled_circuit(
+                            self.store, circ, block_words=block_words
+                        )
+                        if _trace.enabled:
+                            _annotate_dispatch(sp, info)
+                    self.last_info = info
+                    if active:
+                        # one drift sample for the shared gather: the batch's
+                        # summed prediction vs the one realised gather
+                        bc = [plans[i].cost for i in batch]
+                        pred = (
+                            sum(c for c in bc if c is not None)
+                            if any(c is not None for c in bc) else None
+                        )
+                        _obs.record_drift(
+                            "tiled_fused", pred, info["words_touched"],
+                            _time.perf_counter() - tdisp,
+                        )
+                else:
+                    cbackend = backend or ("fused" if self._fused_available() else "circuit")
+                    with _trace.span("dispatch", backend=cbackend, batched=len(batch)):
+                        stacked = self._dense_eval(tuple(qs[i] for i in batch), block_words)
+                if stacked.dim() == 1:
+                    stacked = stacked[None]
+                for j, i in enumerate(batch):
+                    results[i] = stacked[j]
             for i, (q, alg) in enumerate(zip(qs, algs)):
-                if alg in CIRCUIT_BACKENDS or (
-                    alg in _BATCHABLE and self._bare_slots(q) is not None
-                ):
-                    batch.append(i)
-        results: dict[int, torch.Tensor] = {}
-        if len(batch) > 1:
-            tiled = backend == "tiled_fused" or (
-                backend is None and all(algs[i] == "tiled_fused" for i in batch)
-            )
-            if tiled:
-                circ = self._circuit_for(tuple(qs[i] for i in batch))
-                stacked, info = run_tiled_circuit(self.store, circ, block_words=block_words)
-                self.last_info = info
-            else:
-                stacked = self._dense_eval(tuple(qs[i] for i in batch), block_words)
-            if stacked.dim() == 1:
-                stacked = stacked[None]
-            for j, i in enumerate(batch):
-                results[i] = stacked[j]
-        for i, (q, alg) in enumerate(zip(qs, algs)):
-            if i not in results:
-                results[i] = self._run(q, alg, block_words)
+                if i not in results:
+                    tq = _time.perf_counter() if active else 0.0
+                    results[i] = self._run(q, alg, block_words)
+                    if active:
+                        inf = self.last_info
+                        m = inf.get("words_touched") if isinstance(inf, dict) else None
+                        _obs.record_drift(
+                            str(alg), plans[i].cost, m or 0, _time.perf_counter() - tq,
+                        )
+            if _trace.enabled:
+                costs = [p.cost for p in plans if p.cost is not None]
+                info = self.last_info
+                root.set(
+                    backends=sorted(set(map(str, algs))),
+                    predicted_words=sum(costs) if costs else None,
+                    measured_words=(
+                        info.get("words_touched") if isinstance(info, dict) else None
+                    ),
+                )
         return [self._mask(results[i]) for i in range(len(qs))]
 
     def count(self, query, **kw) -> int:
@@ -505,7 +628,10 @@ class BitmapIndex:
 
     def _run(self, q: Query, alg: str, block_words) -> torch.Tensor:
         try:
-            out, info = run_plan(self._shard_ctx(q, block_words), alg)
+            with _trace.span("dispatch", backend=alg) as sp:
+                out, info = run_plan(self._shard_ctx(q, block_words), alg)
+                if _trace.enabled and isinstance(info, dict):
+                    _annotate_dispatch(sp, info)
         except ValueError as e:
             if "only executes bare Threshold" in str(e):
                 raise ValueError(

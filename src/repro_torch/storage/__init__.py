@@ -5,8 +5,9 @@ all-one / dirty, container kinds, per-column and member-subset statistics,
 the dense view on the device, the store-wide packs and their device
 mirrors, the cell and event gathers), the container codecs, and the
 tile-skipping executor :func:`run_tiled_circuit` (``tiled_fused``) with
-its ``scan`` and ``merge`` engines.  The block-RLE primitives
-(``storage/tiles.py``) are not ported yet.
+its ``scan`` and ``merge`` engines, and the block-RLE primitives of
+``storage/tiles.py`` (:class:`BlockStats`, :func:`classify_tiles`,
+:func:`runcount`, the ``rbmrg_block`` pruner :func:`rbmrg_block_threshold`).
 """
 
 from .containers import (
@@ -19,6 +20,7 @@ from .containers import (
     sparse_max_positions,
 )
 from .tiled import run_tiled_circuit
+from .tiles import BlockStats, classify_tiles, rbmrg_block_threshold, runcount
 from .tilestore import (
     TILE_DIRTY,
     TILE_ONE,
@@ -32,6 +34,10 @@ from .tilestore import (
 __all__ = [
     "TileStore",
     "run_tiled_circuit",
+    "BlockStats",
+    "classify_tiles",
+    "rbmrg_block_threshold",
+    "runcount",
     "ColumnStats",
     "MemberStats",
     "TILE_ZERO",

@@ -498,6 +498,7 @@ def _run_scan_pass(store, merged, base_vals, info, sel, restricted,
             out_src=torch.from_numpy(np.concatenate(out_src)).to(dev),
             out_dst=torch.from_numpy(np.concatenate(out_dst).astype(np.int64)).to(dev),
             k_max=k_max_ev, mm=mm, n_wires=m_max_ev, tw=tw,
+            counted_toggles=tiled_scan.next_pow2(keys.size),  # the reference pads to pow2
         )
         info["launches"] += 1
 
@@ -562,6 +563,9 @@ def _run_scan_pass(store, merged, base_vals, info, sel, restricted,
         plan["block"] = tiled_scan.make_block_stage(
             table, np.concatenate(gids_p), np.concatenate(cells_p),
             np.concatenate(dst_p), store.device_packs(), B, tw,
+            counted_decode_words=tiled_scan.reference_decode_words(
+                tw, m_max, k_max, [b[4].size for b in bgroups]
+            ),
         )
         info["launches"] += 1
 

@@ -29,7 +29,8 @@ per-column and member-subset statistics, ``append`` / ``replace`` /
 ``with_tile_words``, the dense view, and the pack/gather half that the
 tile-skipping executor (``storage.tiled``) reads: the store-wide packs and
 their device mirrors (``packs`` / ``device_packs`` / ``dirty``) and the
-cell and event gathers.  Tile updates, slicing and the snapshot
+cell and event gathers, and ``block_stats`` (the 3-class view that
+``rbmrg_block`` reads).  Tile updates, slicing and the snapshot
 constructor belong to later slices (see ROADMAP.md).
 
 Stores are immutable: ``append`` / ``replace`` return a new ``TileStore``
@@ -676,6 +677,13 @@ class TileStore:
 
     def column(self, i: int) -> torch.Tensor:
         return self.densify()[int(i)]
+
+    def block_stats(self):
+        """Legacy 3-class view (ZERO/ONE/DIRTY) for ``rbmrg_block``."""
+        from .tiles import BlockStats
+
+        return BlockStats(classes=self._classes_word.copy(),
+                          tile_words=self.tile_words, n_words=self.n_words)
 
     def member_stats(self, slots=None) -> MemberStats:
         """Planner-facing aggregate over a member subset (default: all).

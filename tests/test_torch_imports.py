@@ -13,7 +13,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import sys; "
         "import repro_torch, repro_torch.query, repro_torch.kernels.threshold_ssum, "
         "repro_torch.convert, repro_torch.storage, repro_torch.core.threshold, "
-        "repro_torch.kernels.tiled_scan, repro_torch.storage.tiled; "
+        "repro_torch.kernels.tiled_scan, repro_torch.storage.tiled, repro_torch.obs, "
+        "repro_torch.persist, repro_torch.core.listalgos, repro_torch.storage.tiles, "
+        "repro_torch.core.symmetric, repro_torch.core.blockrle, repro_torch.kernels.ops; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]; "
         "print('BAD', bad); sys.exit(1 if bad else 0)"

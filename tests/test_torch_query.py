@@ -10,7 +10,6 @@ from _torch_port import clean_fraction_bits, u32
 from repro import query as RQ
 from repro_torch import query as TQ
 from repro_torch.convert import index_from_reference_arrays, words_to_numpy
-from repro_torch.query.executors import UNPORTED_BACKENDS
 
 N, R = 12, 10_000
 NAMES = [f"store{i}" for i in range(N)]
@@ -181,7 +180,7 @@ def test_compiled_and_plan_caches(pair):
     assert c1 is TQ.circuit_for((TQ.Interval(2, 10),), N, tuple(NAMES))
 
 
-def test_clean_heavy_index_plans_tiled_fused_and_says_it_is_not_ported():
+def test_clean_heavy_index_plans_and_answers_through_tiled_fused():
     """A clean-heavy index plans ``tiled_fused`` as the reference does, and
     (since the route is ported) answers through it: results, plans and
     ``last_info`` equal the reference's, batched queries included."""
@@ -202,15 +201,12 @@ def test_clean_heavy_index_plans_tiled_fused_and_says_it_is_not_ported():
     assert tor.last_info == ref.last_info
 
 
-@pytest.mark.parametrize("backend", sorted(UNPORTED_BACKENDS))
-def test_unported_backends_raise_and_name_their_roadmap_item(pair, backend):
+def test_unknown_backend_raises(pair):
     _bits, _ref, tor = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        tor.execute(TQ.Threshold(3), backend=backend)
-    with pytest.raises(NotImplementedError, match=backend):
-        TQ.run_threshold_backend(tor.columns, 3, backend)
     with pytest.raises(ValueError, match="unknown"):
         tor.execute(TQ.Threshold(3), backend="no_such_backend")
+    with pytest.raises(ValueError, match="unknown"):
+        TQ.run_threshold_backend(tor.columns, 3, "no_such_backend")
 
 
 def test_device_none_without_a_card_raises(pair):
