@@ -66,6 +66,23 @@ What it does, one JSON object per line:
                        reference's decode-word count, the Prometheus lint,
                        drift samples, and ``Interval(2,10)`` to result with
                        tracing on and off.
+12. ``stream``      -- a ``StreamingIndex`` over the clustered index: two
+                       materialized views, three seeded batches (2**14
+                       corrections a column in the newest 2**20 rows, 4,096
+                       scattered updates, 4,096 appended rows), queries through
+                       the overlay (``merge`` engine and K1) held against K1
+                       over a dense copy replayed with torch ops and the counter
+                       oracle, view refreshes through K1, ``compact()`` against
+                       a rebuild and its answers on the ``scan`` engine (K2),
+                       and auto-compaction under the default policy; times of
+                       each step under the card's name and power limit.
+13. ``persist``     -- in a temporary directory, removed at the end:
+                       ``attach_durable`` (a checkpoint), two logged batches,
+                       ``recover`` against the live index, a torn last WAL
+                       record dropped, ``BitmapIndex.load(to_device=True)``
+                       re-saved to the same sha256, a ``PagedTileStore``
+                       query on the ``merge`` engine with its ``cache_info``,
+                       and the WAL append latency.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line, and the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -1526,6 +1543,393 @@ def phase_obs(idx, reps: int = 20) -> None:
          launch_counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: streaming updates, materialized views and compaction
+# ---------------------------------------------------------------------------
+
+STREAM_TAIL_ROWS = 2**20  # late corrections land in the newest rows
+STREAM_TAIL_UPDATES = 2**14  # per column
+STREAM_SCATTERED = 4096
+STREAM_APPEND_ROWS = 4096
+STREAM_APPEND_DENSITY = 0.05
+
+
+def replay_on_dense(dense: torch.Tensor, cols, pos, on) -> None:
+    """Apply a batch of single-bit sets (``on``) and clears to ``dense``
+    (int32[n, n_words] on the card) with torch ops, sets first: the oracle
+    of the streaming engine, independent of its host buffers."""
+    n, nw = dense.shape
+    flat = dense.view(-1)
+    for sel, setting in ((on, True), (~on, False)):
+        if not sel.any():
+            continue
+        key = torch.unique(torch.from_numpy(cols[sel] * (nw * 32) + pos[sel]).to(dense.device))
+        word = (key // (nw * 32)) * nw + (key % (nw * 32)) // 32
+        mask = torch.zeros(n * nw, dtype=torch.int64, device=dense.device)
+        mask.index_add_(0, word, torch.bitwise_left_shift(torch.ones_like(key), key % 32))
+        mask = torch.where(mask >= 2**31, mask - 2**32, mask).to(torch.int32)
+        if setting:
+            flat |= mask
+        else:
+            flat &= ~mask
+
+
+def as_update(names, cols, pos, on) -> dict:
+    """The ``update(sets=..., clears=...)`` keywords of a flat batch."""
+    sets, clears = {}, {}
+    for c in np.unique(cols).tolist():
+        sel = cols == c
+        sets[names[c]] = pos[sel & on]
+        clears[names[c]] = pos[sel & ~on]
+    return {"sets": sets, "clears": clears}
+
+
+def stream_queries(data: tuple, composite) -> tuple:
+    """The overlay's queries, all over the data columns (views join the
+    schema, and ``over=None`` would read them too); ``composite`` is the
+    tiled path's, whose members it names."""
+    from repro_torch.query import Interval, Threshold
+
+    queries = {"interval_2_10": Interval(2, 10, over=data), "threshold_2": Threshold(2, over=data),
+               "threshold_32": Threshold(32, over=data), "composite": composite}
+    many = [Threshold(t, over=data) for t in (2, 4, 8)]
+    return queries, many
+
+
+def host_profile(fn, top: int = 10) -> list:
+    """Where one call's host time goes: ``cProfile`` around ``fn`` through a
+    device synchronise; the ``top`` functions by own time, in ms (the
+    profiler's own cost inflates them)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [{"function": f"{os.path.basename(path)}:{line}:{name}", "calls": st[1],
+             "own_ms": st[2] * 1e3, "cumulative_ms": st[3] * 1e3}
+            for (path, line, name), st in rows]
+
+
+def phase_stream(tidx, composite, smi: str, seed: int):
+    from repro_torch.core.bitmaps import cardinality, n_words_for, pack, packed_tail_mask
+    from repro_torch.kernels.threshold_ssum import run_circuit_cached
+    from repro_torch.query import Interval, Threshold
+    from repro_torch.query.index import circuit_for
+    from repro_torch.storage import TileStore
+    from repro_torch.stream import CompactionPolicy, OverlayStore, StreamingIndex
+
+    dev = tidx.device
+    data = tidx.names
+    n = len(data)
+    rng = np.random.default_rng(seed + 12)
+    report = {"card": smi}
+
+    def timed_s(fn):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    # views first: materialize() compacts, so they are registered on the
+    # clean base and the batches below land in the overlay
+    s = StreamingIndex(tidx, policy=CompactionPolicy(auto=False))
+    view_queries = {"v_interval_2_10": Interval(2, 10), "v_threshold_2_s48_s63":
+                    Threshold(2, over=data[48:64])}
+    zero_counts()
+    mat_s = {name: timed_s(lambda q=q, name=name: s.materialize(name, q))[1]
+             for name, q in view_queries.items()}
+    report["materialize"] = {"seconds": mat_s, "launch_counts": read_counts()}
+
+    # three seeded batches, replayed with torch ops on a clone of the dense view
+    r0 = s.r
+    dense = tidx.columns.clone()
+    tail_cols = np.repeat(np.arange(n), STREAM_TAIL_UPDATES)
+    tail_rows = min(STREAM_TAIL_ROWS, r0 // 4)
+    tail_pos = r0 - tail_rows + rng.integers(0, tail_rows, tail_cols.size)
+    tail_on = rng.random(tail_cols.size) < 0.5
+    sc_cols = rng.integers(0, n, STREAM_SCATTERED)
+    sc_pos = rng.integers(0, r0, STREAM_SCATTERED)
+    sc_on = rng.random(STREAM_SCATTERED) < 0.5
+    app = rng.random((n, STREAM_APPEND_ROWS)) < STREAM_APPEND_DENSITY
+    batches = []
+    for name, cols, pos, on in (("tail_corrections", tail_cols, tail_pos, tail_on),
+                                ("scattered", sc_cols, sc_pos, sc_on)):
+        kw = as_update(data, cols, pos, on)
+        zero_counts()
+        _, secs = timed_s(lambda: s.update(**kw))
+        batches.append({"batch": name, "updates": int(cols.size), "apply_ms": secs * 1e3,
+                        "patched_tiles": s.delta_stats()["patched_tiles"],
+                        "launch_counts": read_counts()})
+        replay_on_dense(dense, cols, pos, on)
+    zero_counts()
+    (start, stop), secs = timed_s(lambda: s.append_rows(app))
+    batches.append({"batch": "append_rows", "rows": STREAM_APPEND_ROWS, "apply_ms": secs * 1e3,
+                    "patched_tiles": s.delta_stats()["patched_tiles"], "r": [r0, s.r],
+                    "launch_counts": read_counts()})
+    check((start, stop) == (r0, r0 + STREAM_APPEND_ROWS), f"append_rows range {(start, stop)}")
+    r1 = s.r
+    nw1 = n_words_for(r1)
+    check(nw1 > tidx.n_words, "the appended rows grew the word axis")
+    dense = torch.nn.functional.pad(dense, (0, nw1 - dense.shape[1]))
+    arow, apos = np.nonzero(app)
+    replay_on_dense(dense, arow.astype(np.int64), r0 + apos.astype(np.int64),
+                    np.ones(arow.size, bool))
+    tail_touched = len({int(p) // (s.tile_words * 32) for p in tail_pos[tail_cols == 0]})
+    report["batches"] = batches
+    report["tail_tiles_touched_per_column"] = tail_touched
+
+    # the views refresh through K1 over the touched tiles only
+    zero_counts()
+    _, refresh_s = timed_s(s.refresh)
+    refresh_counts = read_counts()
+    report["view_refresh"] = {"ms": refresh_s * 1e3, "launch_counts": refresh_counts,
+                              "info": {v: s.view_info(v) for v in view_queries}}
+    check(refresh_counts["circuit_eval"] == len(view_queries),
+          f"one K1 launch per view refresh, {refresh_counts}")
+
+    # the overlay: build and dense view timed on their own
+    base_store = s._base.store
+    ov, ov_s = timed_s(lambda: OverlayStore(base_store, s._delta))
+    _, dens_s = timed_s(ov.densify)
+    report["overlay"] = {"build_s": ov_s, "densify_ms": dens_s * 1e3,
+                         "n_tiles": ov.n_tiles, "n_words": ov.n_words}
+    del ov
+
+    # queries through the overlay, then the two oracles
+    queries, many = stream_queries(data, composite)
+    zero_counts()
+    results, runs = {}, []
+    for name, q in queries.items():
+        plan = s.explain(q)
+        got, first_s = timed_s(lambda q=q: s.execute(q))
+        info = dict(s.index().last_info)
+        results[name] = got
+        runs.append({"query": name, "algorithm": plan.algorithm, "engine": info.get("engine"),
+                     "launches": info.get("launches"), "first_call_s": first_s})
+    many_got, many_s = timed_s(lambda: s.execute_many(many))
+    many_info = dict(s.index().last_info)
+    overlay_counts = read_counts()
+    check(overlay_counts["circuit_eval"] > 0, f"the overlay's routes launched K1, {overlay_counts}")
+    check(overlay_counts["tiled_block"] == 0, "the overlay never takes the scan engine")
+    for rec in runs + [many_info]:
+        if rec.get("algorithm", rec.get("backend")) == "tiled_fused":
+            check(rec["engine"] == "merge", f"tiled on the overlay is the merge engine: {rec}")
+
+    mask = packed_tail_mask(r1, nw1, dev)
+
+    def k1_dense(q):
+        """K1 over the independent dense copy, tail-masked."""
+        want = run_circuit_cached(dense, circuit_for((q,), n, data))
+        return want if mask is None else want & mask
+
+    sl_words = min(nw1, 2**16)
+    tail_rows = dense[:, nw1 - sl_words:]
+    tail_bits = r1 - (nw1 - sl_words) * 32
+    slot = {nm: i for i, nm in enumerate(data)}
+    bad = {}
+    held = [(name, q, results[name]) for name, q in queries.items()]
+    held += [(f"execute_many[{j}]", q, g) for j, (q, g) in enumerate(zip(many, many_got))]
+    for name, q, got in held:
+        want = k1_dense(q)
+        ob = oracle_bits(q, slot, tail_rows)
+        ob[tail_bits:] = False
+        bad[name] = {"k1_dense_copy": mismatches(got, want),
+                     "oracle": mismatches(got[nw1 - sl_words:], pack(ob, dev))}
+        check(bad[name] == {"k1_dense_copy": 0, "oracle": 0}, f"{name}: {bad[name]}")
+    report["overlay_queries"] = runs
+    report["execute_many"] = {"k": len(many), "backend": many_info["backend"],
+                              "engine": many_info.get("engine"), "first_call_s": many_s}
+    report["overlay_launch_counts"] = overlay_counts
+    report["mismatch"] = bad
+
+    # the views equal the same query executed, their counts its popcount
+    view_words = {}
+    for name in view_queries:
+        q = s._views[name].query  # its members bound at registration
+        col = s.column(name)
+        want = s.execute(q)
+        view_words[name] = want
+        check(mismatches(col, want) == 0, f"view {name} differs from its query")
+        card = int(cardinality(want).item())
+        check(s.count(name) == card, f"view {name}: count {s.count(name)} vs popcount {card}")
+        check(mismatches(want, k1_dense(q)) == 0, f"view {name} differs from K1 over the dense copy")
+    report["views"] = {name: {"cardinality": s.count(name)} for name in view_queries}
+
+    # to result: the overlay beside the compacted base, after compaction
+    overlay_ms = {name: to_result_ms(lambda q=q: s.execute(q)) for name, q in queries.items()}
+    report["overlay_profile"] = host_profile(lambda: s.execute(queries["interval_2_10"]))
+
+    zero_counts()
+    compacted, compact_s = timed_s(s.compact)
+    check(compacted, "compact() merged the delta")
+    store = s._base.store
+    rebuilt, rebuild_s = timed_s(lambda: TileStore.from_packed(
+        torch.cat([dense] + [view_words[v][None] for v in view_queries]), r=r1, device=dev))
+    for attr in ("classes_word", "container_kinds"):
+        check(np.array_equal(getattr(store, attr), getattr(rebuilt, attr)),
+              f"compacted {attr} differ from a rebuild")
+    check(store.cardinalities == rebuilt.cardinalities, "compacted cardinalities differ")
+    del rebuilt
+    compact_runs = []
+    for name, q in queries.items():
+        got = s.execute(q)
+        info = dict(s.index().last_info)
+        check(info["backend"] == "tiled_fused" and info["engine"] == "scan",
+              f"{name}: the compacted base ran {info['backend']} / {info.get('engine')}")
+        check(mismatches(got, results[name]) == 0, f"{name}: compacted differs from the overlay")
+        compact_runs.append({"query": name, "to_result_ms": to_result_ms(lambda q=q: s.execute(q)),
+                             "overlay_to_result_ms": overlay_ms[name]})
+    got = s.execute_many(many)
+    for j in range(len(many)):
+        check(mismatches(got[j], many_got[j]) == 0, f"many[{j}]: compacted differs")
+    compact_counts = read_counts()
+    check(compact_counts["tiled_block"] > 0, f"the compacted base launched K2, {compact_counts}")
+    report["compaction"] = {"seconds": compact_s, "rebuild_seconds": rebuild_s,
+                            "queries": compact_runs, "launch_counts": compact_counts}
+
+    # the default policy: a batch past its threshold compacts on its own
+    s2 = StreamingIndex(s._base)
+    pol = s2.policy
+    need = max(pol.min_delta_words, pol.max_delta_ratio * s2._base_working_words())
+    k = int(need / s2.tile_words * 1.25) + 1
+    cols = rng.integers(0, n, k)
+    pos = rng.integers(0, r1, k)
+    on = rng.random(k) < 0.5
+    zero_counts()
+    _, auto_s = timed_s(lambda: s2.update(**as_update(data, cols, pos, on)))
+    check(s2.compactions == 1 and s2.delta_words == 0,
+          f"auto-compaction: {s2.compactions} compactions, {s2.delta_words} delta words")
+    replay_on_dense(dense, cols, pos, on)
+    q = queries["interval_2_10"]
+    got = s2.execute(q)
+    auto_counts = read_counts()
+    check(mismatches(got, k1_dense(q)) == 0,
+          "after auto-compaction: differs from K1 over the dense copy")
+    report["auto_compaction"] = {"updates": k, "threshold_words": need, "seconds": auto_s,
+                                 "compactions": s2.compactions,
+                                 "engine": s2.index().last_info.get("engine"),
+                                 "launch_counts": auto_counts}
+    emit("stream", **report)
+    return s, dense, queries
+
+
+# ---------------------------------------------------------------------------
+# phase 13: durable snapshots and the write-ahead log
+# ---------------------------------------------------------------------------
+
+
+def sha256_of(path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def phase_persist(s, dense, queries, smi: str, seed: int) -> None:
+    import shutil
+    import tempfile
+
+    from repro_torch.persist import PagedTileStore, WriteAheadLog, load, read_manifest, save
+    from repro_torch.query import BitmapIndex, Threshold
+    from repro_torch.stream import StreamingIndex
+
+    data = s.names[:dense.shape[0]]
+    rng = np.random.default_rng(seed + 13)
+    q = queries["interval_2_10"]
+    # three columns: at most 27 signatures, so no overflow group; their dense
+    # tails make tiles that go through the page cache
+    paged_q = Threshold(2, over=data[:3])
+    report = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="bmsnap-")
+    try:
+        d = os.path.join(tmp, "durable")
+        zero_counts()
+        t0 = time.perf_counter()
+        s.attach_durable(d)  # no checkpoint there yet: writes one
+        report["checkpoint_s"] = time.perf_counter() - t0
+        snap = os.path.join(d, "snapshot.bmsnap")
+        report["snapshot_bytes"] = os.path.getsize(snap)
+        want_snap = s.execute(paged_q)
+
+        def batch(k):
+            cols = rng.integers(0, len(data), k)
+            return as_update(data, cols, rng.integers(0, s.r, k), rng.random(k) < 0.5)
+
+        s.update(**batch(4096))  # logged: batch A
+        want_a = s.execute(q)
+        s.update(**batch(4096))  # logged: batch B
+        want_b = s.execute(q)
+        t0 = time.perf_counter()
+        rec = StreamingIndex.recover(d)
+        got = rec.execute(q)
+        torch.cuda.synchronize()
+        report["recover_s"] = time.perf_counter() - t0
+        check(rec.wal_version == s.wal_version, "recovered WAL version")
+        check(mismatches(got, want_b) == 0, "recovered answers differ from the live index")
+        for v in s.views:
+            check(mismatches(rec.column(v), s.column(v)) == 0, f"recovered view {v} differs")
+        # a torn last record: recovery answers as of batch A
+        wal = os.path.join(d, "wal.bmwal")
+        raw = open(wal, "rb").read()
+        with open(wal, "wb") as f:
+            f.write(raw[:-5])
+        rec_a = StreamingIndex.recover(d)
+        check(rec_a.wal_version == s.wal_version - 1, "the torn record was dropped")
+        check(mismatches(rec_a.execute(q), want_a) == 0,
+              "after a torn record: differs from the index as of the batch before")
+        report["durable_launch_counts"] = read_counts()
+
+        # load(to_device=True) and save again: the same bytes
+        idx = BitmapIndex.load(snap, to_device=True)
+        check(idx.store._dirty_dev is not None and idx.device.type == "cuda", "dirty pack uploaded")
+        resaved = os.path.join(tmp, "resaved.bmsnap")
+        manifest = read_manifest(snap)  # the checkpoint's extra keys go along
+        save(idx, resaved, extra={k: manifest[k] for k in ("wal_version", "views")})
+        report["sha256"] = sha256_of(snap)
+        check(sha256_of(resaved) == report["sha256"], "load + save changed the snapshot's bytes")
+
+        check(mismatches(idx.execute(paged_q), want_snap) == 0,
+              "the loaded index differs from the checkpointed one")
+
+        # the paged tier over the mapped snapshot: one tiled query, merge engine
+        zero_counts()
+        paged = PagedTileStore(load(snap))
+        pidx = BitmapIndex(names=idx.names, _store=paged)
+        got = pidx.execute(paged_q, backend="tiled_fused")
+        check(pidx.last_info["engine"] == "merge", "the paged store takes the merge engine")
+        check(mismatches(got, want_snap) == 0, "paged query differs from the checkpointed index")
+        paged_ms = to_result_ms(lambda: pidx.execute(paged_q, backend="tiled_fused"))
+        paged_counts = read_counts()
+        check(paged_counts["circuit_eval"] > 0 and paged_counts["tiled_block"] == 0,
+              f"the paged path launched K1 and never K2, {paged_counts}")
+        report["paged"] = {"query": "threshold_2_of_s0_s2", "to_result_ms": paged_ms,
+                           "cache_info": paged.cache_info(), "launch_counts": paged_counts}
+
+        # WAL append latency on a log of its own
+        wl = WriteAheadLog(os.path.join(tmp, "bench.bmwal"))
+        cols = rng.integers(0, len(data), 4096)
+        pos = rng.integers(0, s.r, 4096)
+        on = rng.random(4096) < 0.5
+        times = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            wl.append_update(cols, pos, on)
+            times.append((time.perf_counter() - t0) * 1e6)
+        wl.close()
+        report["wal_append_us"] = {"updates": 4096, "median": statistics.median(times),
+                                   "min": min(times), "max": max(times), "appends": 50}
+        emit("persist", **report)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-log2", type=int, default=27,
@@ -1570,6 +1974,10 @@ def main() -> int:
     thead = timed("tiled_timing", phase_tiled_timing, tidx, tqueries, tmany, args.reps)
     timed("backends_tiled", phase_backends_tiled, tidx)
     timed("obs", phase_obs, tidx)
+    stream, dense, squeries = timed("stream", phase_stream, tidx,
+                                      tqueries["composite"], smi, args.seed)
+    del tidx
+    timed("persist", phase_persist, stream, dense, squeries, smi, args.seed)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port must not import jax or the reference package")
 

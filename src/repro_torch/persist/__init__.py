@@ -1,9 +1,48 @@
-"""`repro_torch.persist`: persisted planner calibration constants.
+"""`repro_torch.persist`: versioned on-disk index format, WAL + snapshot
+recovery, and persisted planner calibration.
 
-Ported so far: ``calibration.json`` (:mod:`~repro_torch.persist.calibration`).
-The snapshot format, shards, WAL and paged tiers of the reference's
-``repro.persist`` are later work (``ROADMAP.md``).
+  * :mod:`~repro_torch.persist.format` -- the ``.bmsnap`` framing: header,
+    checksummed raw sections, JSON manifest footer;
+  * :mod:`~repro_torch.persist.snapshot` -- ``save``/``load`` of one
+    TileStore / BitmapIndex with zero-copy ``np.memmap`` reconstruction;
+  * :mod:`~repro_torch.persist.wal` -- the ``.bmwal`` write-ahead log of
+    streaming mutation batches (per-record CRC, monotone versions);
+  * :mod:`~repro_torch.persist.tiers` -- ``PagedTileStore``, the
+    host-resident read tier that gathers only plan-touched tiles;
+  * :mod:`~repro_torch.persist.calibration` -- ``calibration.json``.
+
+The ``.bmsnap`` and ``.bmwal`` bytes are the reference's: files written by
+either package load and replay in the other.  High-level entry points live
+on the owning classes: ``BitmapIndex.save`` / ``.load`` and
+``StreamingIndex.checkpoint`` / ``.recover``.  The per-shard files of the
+reference (``persist/shards.py``) come with sharding (``ROADMAP.md``).
 """
-from .calibration import ensure_calibration, load_calibration, save_calibration
+from .calibration import (
+    CALIBRATION_FILE,
+    ensure_calibration,
+    load_calibration,
+    save_calibration,
+)
+from .format import FormatError, read_manifest, schema_digest, verify_snapshot
+from .snapshot import load, load_index, save, snapshot_info
+from .tiers import PagedTileStore
+from .wal import WriteAheadLog, query_from_obj, query_to_obj
 
-__all__ = ["ensure_calibration", "load_calibration", "save_calibration"]
+__all__ = [
+    "CALIBRATION_FILE",
+    "FormatError",
+    "PagedTileStore",
+    "WriteAheadLog",
+    "ensure_calibration",
+    "load_calibration",
+    "save_calibration",
+    "load",
+    "load_index",
+    "query_from_obj",
+    "query_to_obj",
+    "read_manifest",
+    "save",
+    "schema_digest",
+    "snapshot_info",
+    "verify_snapshot",
+]

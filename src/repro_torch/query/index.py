@@ -30,8 +30,9 @@ planning and executing correctly against their own schema.
 Compiled circuits are cached per process by (query shape, column names);
 their encoded programs are cached by circuit *structure* underneath
 (``kernels.threshold_ssum``).  Data never enters either key, so every
-index with the same schema shares both layers.  Sharding and persistence
-of the reference are not ported yet.
+index with the same schema shares both layers.  :meth:`save` /
+:meth:`load` write and read the reference's ``.bmsnap`` snapshots
+(:mod:`repro_torch.persist`); sharding of the reference is not ported yet.
 
 **Observability**: with :mod:`repro_torch.obs` enabled, ``execute`` /
 ``execute_many`` emit the reference's span trees (plan / compile /
@@ -392,6 +393,25 @@ class BitmapIndex:
         return BitmapIndex(
             names=self._names, _store=self.store.replace(self._slot[name], packed)
         )
+
+    # -- persistence -------------------------------------------------------
+    def save(self, path) -> dict:
+        """Write a ``.bmsnap`` snapshot (``repro_torch.persist``, the
+        reference's bytes); returns the manifest.  ``BitmapIndex.load(path)``
+        reconstructs the index over ``np.memmap`` views -- no rebuild, no
+        classification pass."""
+        from repro_torch.persist import save
+
+        return save(self, path)
+
+    @classmethod
+    def load(cls, path, *, device=None, to_device: bool = False,
+             verify: bool = False) -> "BitmapIndex":
+        """Reconstruct a saved index on ``device`` (default: the CUDA card);
+        see :func:`repro_torch.persist.load_index`."""
+        from repro_torch.persist import load_index
+
+        return load_index(path, device=device, to_device=to_device, verify=verify)
 
     # -- statistics --------------------------------------------------------
     def stats(self, tile_words: int | None = None, refresh: bool = False) -> IndexStats:

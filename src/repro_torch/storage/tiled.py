@@ -612,8 +612,12 @@ def _run_merge_pass(store, merged, base_vals, info, sel, restricted,
     ck = store.container_kinds if container_native else None
     swc = store.storage_words_cell if container_native else None
     # with no compressed tile anywhere the device gather of the densified
-    # dirty pack is byte-identical and keeps the working set on the device
-    all_dense = not container_native or not (ck > CONT_DENSE).any()
+    # dirty pack is byte-identical and keeps the working set on the device;
+    # paged stores (persist.tiers) must never trigger that whole-pack
+    # upload: their point is touching only the gathered tiles
+    all_dense = not getattr(store, "paged", False) and (
+        not container_native or not (ck > CONT_DENSE).any()
+    )
     for (rkey, live), work in merged.items():
         res, entries = work[0], work[1]
         overflow = len(work) > 2

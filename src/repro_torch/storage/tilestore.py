@@ -29,9 +29,10 @@ per-column and member-subset statistics, ``append`` / ``replace`` /
 ``with_tile_words``, the dense view, and the pack/gather half that the
 tile-skipping executor (``storage.tiled``) reads: the store-wide packs and
 their device mirrors (``packs`` / ``device_packs`` / ``dirty``) and the
-cell and event gathers, and ``block_stats`` (the 3-class view that
-``rbmrg_block`` reads).  Tile updates, slicing and the snapshot
-constructor belong to later slices (see ROADMAP.md).
+cell and event gathers, ``block_stats`` (the 3-class view that
+``rbmrg_block`` reads), the snapshot constructor ``from_arrays`` and the
+streaming compaction path ``apply_tile_updates``.  Tile-range slicing
+(``slice_tiles`` / ``concat_tiles``) comes with sharding (see ROADMAP.md).
 
 Stores are immutable: ``append`` / ``replace`` return a new ``TileStore``
 that shares nothing mutable with the old one, so stale references keep
@@ -45,7 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.bitmaps import pack
+from repro_torch.core.bitmaps import n_words_for, pack
 from repro_torch.device import resolve_device, to_numpy_u32, to_words
 
 from .containers import (
@@ -206,6 +207,48 @@ def _classify_column(row: np.ndarray, tile_words: int, *,
         roff=roff,
         cardinality=_popcount_words(row),
     )
+
+
+def _classify_tile_words(words: np.ndarray) -> np.ndarray:
+    """Word-level class (ZERO / ONE / DIRTY) of each row of
+    uint32[M, tile_words], as uint8[M] in one vectorised pass."""
+    all_one = (words == 0xFFFFFFFF).all(axis=1)
+    return np.where(
+        all_one, TILE_ONE, np.where(words.any(axis=1), TILE_DIRTY, TILE_ZERO)
+    ).astype(np.uint8)
+
+
+def _tile_cardinalities(c: _Column, tiles, tile_words: int) -> np.ndarray:
+    """Popcount of the listed tiles, read from metadata/payloads only."""
+    tiles = np.asarray(tiles, np.int64)
+    out = np.zeros(tiles.size, np.int64)
+    cls = c.classes[tiles]
+    out[cls == TILE_ONE] = tile_words * 32
+    kinds = c.kinds[tiles]
+    dpos = np.cumsum(c.kinds == CONT_DENSE) - 1
+    spos_ord = np.cumsum(c.kinds == CONT_SPARSE) - 1
+    rpos = np.cumsum(c.kinds == CONT_RUN) - 1
+    dn = kinds == CONT_DENSE
+    if dn.any():
+        if hasattr(np, "bitwise_count"):
+            out[dn] = np.bitwise_count(c.dense[dpos[tiles[dn]]]).sum(
+                axis=1, dtype=np.int64
+            )
+        else:
+            out[dn] = [
+                _popcount_words(c.dense[dpos[t]]) for t in tiles[dn]
+            ]
+    sp = kinds == CONT_SPARSE
+    if sp.any():
+        s = spos_ord[tiles[sp]]
+        out[sp] = c.soff[s + 1] - c.soff[s]
+    rn = kinds == CONT_RUN
+    if rn.any():
+        s = rpos[tiles[rn]]
+        lens = c.runs[:, 1].astype(np.int64) - c.runs[:, 0].astype(np.int64)
+        csum = np.concatenate([[0], np.cumsum(lens)])
+        out[rn] = csum[c.roff[s + 1]] - csum[c.roff[s]]
+    return out
 
 
 def _bit_stats(row: np.ndarray, classes: np.ndarray, tile_words: int, r: int):
@@ -538,6 +581,103 @@ class TileStore:
         return cls.from_packed(pack(bits, dev), tile_words=tile_words,
                                r=bits.shape[-1], containers=containers, device=dev)
 
+    @classmethod
+    def from_arrays(cls, arrays, *, tile_words: int, n_words: int, r: int,
+                    containers: bool = True, device=None) -> "TileStore":
+        """Trusted zero-copy constructor from the :attr:`packs` surface.
+
+        ``arrays`` is a mapping holding ``classes`` / ``kinds`` (uint8
+        [N, n_tiles]), ``cardinalities`` (int64 [N]) and the eight pack /
+        ordinal-table arrays exactly as :attr:`packs` lays them out.  The
+        arrays are adopted as-is (they may be read-only ``np.memmap``
+        views over a snapshot file): per-column payloads become slices of
+        the store-wide packs -- the per-column concatenation order of
+        ``_assemble_packs`` guarantees contiguity -- so nothing larger
+        than the offset rebases is copied.  Classification is NOT re-run;
+        callers must hand back arrays a ``TileStore`` produced.  The packs
+        stay host numpy; ``device`` (default: the CUDA card) is where the
+        dense view and the device pack mirrors are uploaded on first use.
+        """
+        dev = resolve_device(device)
+        classes = np.asarray(arrays["classes"])
+        kinds = np.asarray(arrays["kinds"])
+        cards = np.asarray(arrays["cardinalities"], np.int64)
+        if classes.ndim != 2 or classes.shape != kinds.shape:
+            raise ValueError(
+                f"classes/kinds must both be uint8[N, n_tiles], got "
+                f"{classes.shape} vs {kinds.shape}"
+            )
+        n, n_tiles = classes.shape
+        if n_tiles != (int(n_words) + int(tile_words) - 1) // int(tile_words):
+            raise ValueError(
+                f"{n_tiles} tiles inconsistent with n_words={n_words} at "
+                f"tile_words={tile_words}"
+            )
+        if cards.shape != (n,):
+            raise ValueError(f"expected {n} cardinalities, got {cards.shape}")
+        dense_pack = arrays["dense_pack"]
+        sparse_pack, sb = arrays["sparse_pack"], arrays["sparse_bounds"]
+        run_pack, rb = arrays["run_pack"], arrays["run_bounds"]
+        cols = []
+        d0 = s0 = r0 = 0  # per-kind tile ordinals consumed so far
+        for i in range(n):
+            ki = kinds[i]
+            dn = int((ki == CONT_DENSE).sum())
+            sn = int((ki == CONT_SPARSE).sum())
+            rn = int((ki == CONT_RUN).sum())
+            cols.append(_Column(
+                classes=classes[i],
+                kinds=ki,
+                dense=dense_pack[d0:d0 + dn],
+                spos=sparse_pack[sb[s0]:sb[s0 + sn]],
+                soff=np.asarray(sb[s0:s0 + sn + 1], np.int64) - sb[s0],
+                runs=run_pack[rb[r0]:rb[r0 + rn]],
+                roff=np.asarray(rb[r0:r0 + rn + 1], np.int64) - rb[r0],
+                cardinality=int(cards[i]),
+            ))
+            d0 += dn
+            s0 += sn
+            r0 += rn
+        if d0 != len(dense_pack) or sb[s0] != len(sparse_pack) \
+                or rb[r0] != len(run_pack):
+            raise ValueError("pack sizes inconsistent with the kind arrays")
+        store = object.__new__(cls)
+        store._cols = tuple(cols)
+        store.tile_words = int(tile_words)
+        store.n_words = int(n_words)
+        store.r = int(r)
+        store.device = dev
+        store.containers = bool(containers) and containers_supported(tile_words)
+        store.n_tiles = n_tiles
+        store._classes_word = classes
+        store._kinds_cache = kinds
+        store._dirty_np_cache = None
+        store._dirty_index_cache = None
+        store._dirty_dev = None
+        store._packs = {
+            "dense_index": np.asarray(arrays["dense_index"]),
+            "sparse_index": np.asarray(arrays["sparse_index"]),
+            "run_index": np.asarray(arrays["run_index"]),
+            "dense_pack": np.asarray(dense_pack),
+            "sparse_pack": np.asarray(sparse_pack),
+            "sparse_bounds": np.asarray(sb),
+            "run_pack": np.asarray(run_pack),
+            "run_bounds": np.asarray(rb),
+        }
+        store._storage_words_cell = None
+        store._device_packs = None
+        store._dense = None
+        store._refined_classes = None
+        store._col_stats = None
+        store._member_stats_cache = {}
+        if not (kinds > CONT_DENSE).any():
+            # all-dense layout: the densified dirty pack IS the dense pack
+            # (same per-column tile order), so the dirty surface reads the
+            # memmap directly -- no assembly copy
+            store._dirty_np_cache = store._packs["dense_pack"]
+            store._dirty_index_cache = store._packs["dense_index"]
+        return store
+
     def _row_words(self, packed_row) -> torch.Tensor:
         row = to_words(packed_row, self.device)
         if tuple(row.shape) != (self.n_words,):
@@ -579,6 +719,155 @@ class TileStore:
         return TileStore(cols, tile_words=self.tile_words, n_words=self.n_words,
                          r=self.r, dense=dense, containers=self.containers,
                          device=self.device)
+
+    def apply_tile_updates(self, updates: dict, *, r: int | None = None
+                           ) -> "TileStore":
+        """New store with individual tiles' words swapped -- the streaming
+        compaction path (``repro_torch.stream``).
+
+        ``updates`` maps column slot -> {tile index -> uint32[tile_words]}
+        (the tile's full new words, padding bits zero).  Only the touched
+        tiles are reclassified -- each into the CHEAPEST container for its
+        new contents (a mutated sparse tile that filled up becomes dense,
+        a cleared dense tile becomes sparse or vanishes) -- and only the
+        touched columns' packs are respliced; untouched columns share
+        their ``_Column`` (classes, packs, stats) with this store.
+        Per-column cardinality is maintained by popcount deltas of the
+        swapped tiles.
+
+        ``r`` may *grow* the universe (``repro_torch.stream``'s
+        ``append_rows``): new tiles default to all-zero for every column,
+        so only columns with set bits in the appended region need entries
+        in ``updates``.  The new store's dense view is rebuilt lazily from
+        its tiles on the first ``densify()``.
+        """
+        r_new = int(r) if r is not None else self.r
+        if r_new < self.r:
+            raise ValueError(f"universe cannot shrink ({self.r} -> {r_new})")
+        nw_new = n_words_for(r_new)
+        tw = self.tile_words
+        n_tiles_new = (nw_new + tw - 1) // tw
+        growth = n_tiles_new - self.n_tiles
+        cols = []
+        for i, old in enumerate(self._cols):
+            upd = updates.get(i)
+            if not upd and not growth:
+                cols.append(old)  # shares classes/packs/stats, immutable
+                continue
+            if not upd:
+                cols.append(
+                    dataclasses.replace(
+                        old,
+                        classes=np.concatenate(
+                            [old.classes, np.zeros(growth, np.uint8)]
+                        ),
+                        kinds=np.concatenate(
+                            [old.kinds, np.zeros(growth, np.uint8)]
+                        ),
+                    )
+                )
+                continue
+            cols.append(self._respliced_column(old, upd, n_tiles_new, growth))
+        return TileStore(cols, tile_words=tw, n_words=nw_new, r=r_new,
+                         containers=self.containers, device=self.device)
+
+    def _respliced_column(self, old: _Column, upd: dict, n_tiles_new: int,
+                          growth: int) -> _Column:
+        """One touched column of :meth:`apply_tile_updates`: reclassify +
+        recompress the updated tiles, splice untouched payload slices."""
+        tw = self.tile_words
+        classes = np.concatenate(
+            [old.classes, np.zeros(growth, np.uint8)]
+        ) if growth else old.classes.copy()
+        ut = np.fromiter(upd, np.int64, len(upd))
+        if ut.size and not ((0 <= ut) & (ut < n_tiles_new)).all():
+            bad = ut[(ut < 0) | (ut >= n_tiles_new)][0]
+            raise ValueError(f"tile {bad} outside [0, {n_tiles_new})")
+        ut.sort()
+        new_words = np.empty((ut.size, tw), np.uint32)
+        for j, t in enumerate(ut.tolist()):
+            w = np.ascontiguousarray(upd[t], dtype=np.uint32)
+            if w.shape != (tw,):
+                raise ValueError(
+                    f"tile update must be uint32[{tw}], got {w.shape}"
+                )
+            new_words[j] = w
+        # popcount-delta cardinality: new - old for every touched tile
+        card = old.cardinality + _popcount_words(new_words)
+        in_base = ut < self.n_tiles
+        card -= int(_tile_cardinalities(old, ut[in_base], tw).sum())
+        new_classes = _classify_tile_words(new_words)
+        classes[ut] = new_classes
+        nd_mask = new_classes >= TILE_DIRTY
+        nkinds, ndense, nspos, nsoff, nruns, nroff = compress_tiles(
+            new_words[nd_mask], tw, containers=self.containers
+        )
+        upd_dirty = ut[nd_mask]  # sorted tile ids of the compressed batch
+        kinds = np.concatenate(
+            [old.kinds, np.zeros(growth, np.uint8)]
+        ) if growth else old.kinds.copy()
+        kinds[ut] = 0
+        kinds[upd_dirty] = nkinds
+        # splice packs in tile order: updated tiles from the new batch,
+        # untouched tiles from the old packs -- vectorised per kind (one
+        # fancy index per source), never a per-tile Python pass
+        old_dense_pos = np.cumsum(old.kinds == CONT_DENSE) - 1
+        old_sparse_pos = np.cumsum(old.kinds == CONT_SPARSE) - 1
+        old_run_pos = np.cumsum(old.kinds == CONT_RUN) - 1
+        new_dense_pos = np.cumsum(nkinds == CONT_DENSE) - 1
+        new_sparse_pos = np.cumsum(nkinds == CONT_SPARSE) - 1
+        new_run_pos = np.cumsum(nkinds == CONT_RUN) - 1
+        dirty_t = np.nonzero(classes >= TILE_DIRTY)[0]
+        is_new = np.isin(dirty_t, upd_dirty)
+        new_j = np.searchsorted(upd_dirty, dirty_t)  # valid where is_new
+
+        dsel = kinds[dirty_t] == CONT_DENSE
+        d_tiles, d_new = dirty_t[dsel], is_new[dsel]
+        dense = np.empty((d_tiles.size, tw), np.uint32)
+        if (~d_new).any():
+            dense[~d_new] = old.dense[old_dense_pos[d_tiles[~d_new]]]
+        if d_new.any():
+            dense[d_new] = ndense[new_dense_pos[new_j[dsel][d_new]]]
+
+        def splice_var(sel, old_pos, old_off, old_pack, new_pos, new_off,
+                       new_pack, empty):
+            tiles_k, from_new = dirty_t[sel], is_new[sel]
+            counts = np.zeros(tiles_k.size, np.int64)
+            o = old_pos[tiles_k[~from_new]] if (~from_new).any() else None
+            if o is not None:
+                counts[~from_new] = old_off[o + 1] - old_off[o]
+            j = new_pos[new_j[sel][from_new]] if from_new.any() else None
+            if j is not None:
+                counts[from_new] = new_off[j + 1] - new_off[j]
+            off = np.zeros(tiles_k.size + 1, np.int64)
+            np.cumsum(counts, out=off[1:])
+            pack = np.empty((int(off[-1]),) + empty.shape[1:], empty.dtype)
+            if o is not None:
+                pack[concat_ranges(off[:-1][~from_new], off[1:][~from_new])] = \
+                    old_pack[concat_ranges(old_off[o], old_off[o + 1])]
+            if j is not None:
+                pack[concat_ranges(off[:-1][from_new], off[1:][from_new])] = \
+                    new_pack[concat_ranges(new_off[j], new_off[j + 1])]
+            return pack, off
+
+        spos, soff = splice_var(
+            kinds[dirty_t] == CONT_SPARSE, old_sparse_pos, old.soff, old.spos,
+            new_sparse_pos, nsoff, nspos, np.zeros((0,), np.uint16),
+        )
+        runs, roff = splice_var(
+            kinds[dirty_t] == CONT_RUN, old_run_pos, old.roff, old.runs,
+            new_run_pos, nroff, nruns, np.zeros((0, 2), np.uint16),
+        )
+        return _Column(
+            classes=classes,
+            kinds=kinds,
+            dense=dense,
+            spos=spos,
+            soff=soff,
+            runs=runs,
+            roff=roff,
+            cardinality=card,
+        )
 
     def with_tile_words(self, tile_words: int) -> "TileStore":
         """Reclassify the whole store at a different tile granularity."""

@@ -15,7 +15,10 @@ def test_port_imports_neither_jax_nor_reference():
         "repro_torch.convert, repro_torch.storage, repro_torch.core.threshold, "
         "repro_torch.kernels.tiled_scan, repro_torch.storage.tiled, repro_torch.obs, "
         "repro_torch.persist, repro_torch.core.listalgos, repro_torch.storage.tiles, "
-        "repro_torch.core.symmetric, repro_torch.core.blockrle, repro_torch.kernels.ops; "
+        "repro_torch.core.symmetric, repro_torch.core.blockrle, repro_torch.kernels.ops, "
+        "repro_torch.stream, repro_torch.stream.delta, repro_torch.stream.overlay, "
+        "repro_torch.stream.index, repro_torch.persist.format, repro_torch.persist.snapshot, "
+        "repro_torch.persist.wal, repro_torch.persist.tiers; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]; "
         "print('BAD', bad); sys.exit(1 if bad else 0)"
