@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card and
 ``nvcc``::
 
     python3 chip_smoke.py                 # full size: 64 columns x (2**27 - 5) rows
-    python3 chip_smoke.py --rows-log2 22 --tiled-rows-log2 22  # a quick, small run
+    python3 chip_smoke.py --rows-log2 22 --tiled-rows-log2 22 --search-rows-log2 16  # quick
 
 What it does, one JSON object per line:
 
@@ -83,11 +83,42 @@ What it does, one JSON object per line:
                        re-saved to the same sha256, a ``PagedTileStore``
                        query on the ``merge`` engine with its ``cache_info``,
                        and the WAL append latency.
+14. ``serve``       -- run after ``backends``, on the random index: a threaded
+                       ``QueryServer`` (2 ms window, batches of up to 64, a
+                       128-entry result cache) under 8 clients sending 4,096
+                       requests drawn Zipf(1.1) from 256 distinct queries, a
+                       quarter with their members reordered; every result,
+                       on receipt, against K1 over its own one-output
+                       circuit, and the widest batch's circuit through K1
+                       against its plain version; throughput,
+                       latency and queue-wait percentiles, the batch-size
+                       histogram, the widest batch's circuit and K1 launch
+                       shape, the cache's bytes on the card, the calibration
+                       constants before and after the feedback; then a run
+                       with 8 pending queries at most, which sheds.
+15. ``serve_stream`` -- the server over a ``StreamingIndex`` of the clustered
+                       index: 64 queries, 4,096 updates to s0-s3, the same 64
+                       again; invalidations against the cached results that
+                       read s0-s3, and every result against K1 over a dense
+                       copy the updates were replayed on with torch ops.
+16. ``search``      -- similarity search over 2**20 random strings (16
+                       letters, lengths 6-15, bigrams, length columns,
+                       ``tile_words`` 8): build steps timed, 16 edited corpus
+                       records as queries, the bitmap T-occurrence beside
+                       MergeOpt, DivideSkip and ScanCount over the same
+                       posting lists (equal ids, each side's time), a numpy
+                       gram-count oracle, a vacuous query, ``topk(10)``, an
+                       append of 4,096 strings with new letters, minhash
+                       bands on 2**16 records; then a ``WindowedStream`` of
+                       12 series, 24 batches of 2**14 events and a window of 8
+                       batches, held against a numpy oracle after each batch.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
-line, and the last line ``{"ok": true, "device": {...}}``.  Any failed
-check raises: the script then exits non-zero and prints no ``ok`` line.
-It never runs on the CPU.
+line (each kernel's ``launches`` from its main path's own window: K1's
+from ``main_path``, K2's from ``tiled_path``; ``launches_by_phase`` the
+launches of every phase's windows), and the last line
+``{"ok": true, "device": {...}}``.  Any failed check raises: the script
+then exits non-zero and prints no ``ok`` line.  It never runs on the CPU.
 """
 from __future__ import annotations
 
@@ -118,8 +149,20 @@ K2_SOURCE = "src/repro_torch/kernels/csrc/tiled_block.cu"
 K2_REPLACES = "src/repro/kernels/tiled_scan.py:236"
 
 
+#: per phase, the K1 and K2 launches of the windows it drove (see ``read_counts``)
+PHASE_LAUNCHES: dict = {}
+
+
 def emit(tag: str, **fields) -> None:
     print(json.dumps({"phase": tag, **fields}), flush=True)
+
+
+def tally(phase: str, counts: dict) -> None:
+    """Add one window's launches to ``phase``'s: a window is the counts set
+    to 0 just before a path is driven and read just after."""
+    into = PHASE_LAUNCHES.setdefault(phase, {"circuit_eval": 0, "tiled_block": 0})
+    for key in into:
+        into[key] += counts.get(key, 0)
 
 
 def check(cond: bool, what: str) -> None:
@@ -784,6 +827,7 @@ def phase_main_path(dev, rows_log2: int, n: int, seed: int):
 
     # counts read just after the main path was driven
     counts = dict(K.launch_counts)
+    tally("main_path", counts)
 
     # verification (its launches and plain runs are not part of the counts above)
     for rec in report:
@@ -1035,6 +1079,7 @@ def phase_tiled_path(dev, rows_log2: int, n: int, seed: int):
 
     # counts read just after the tiled path was driven
     counts = {**K.launch_counts, **TK.launch_counts}
+    tally("tiled_path", counts)
 
     for rec in report:
         check(rec["algorithm"] == "tiled_fused", f"{rec['query']}: planned {rec['algorithm']}")
@@ -1239,11 +1284,14 @@ def zero_counts() -> None:
             counts[key] = 0
 
 
-def read_counts() -> dict:
+def read_counts(phase: str) -> dict:
+    """The counts of the window ``zero_counts`` opened, tallied to ``phase``."""
     from repro_torch.kernels import threshold_ssum as K
     from repro_torch.kernels import tiled_scan as TK
 
-    return {**K.launch_counts, **TK.launch_counts}
+    counts = {**K.launch_counts, **TK.launch_counts}
+    tally(phase, counts)
+    return counts
 
 
 def to_result_ms(fn, n: int = 5) -> float:
@@ -1267,7 +1315,7 @@ def calibration_words_log2(n: int) -> int:
     return lg
 
 
-def phase_calibration(idx) -> None:
+def phase_calibration(idx):
     import tempfile
 
     from repro_torch.core.calibration import (Calibration, clear_calibration, device_signature,
@@ -1287,7 +1335,7 @@ def phase_calibration(idx) -> None:
     t0 = time.perf_counter()
     large = measure_calibration(n=64, n_words=2**lg, device=dev)
     t_large = time.perf_counter() - t0
-    counts = read_counts()
+    counts = read_counts("calibration")
     for cal in (small, large):
         check(cal.device == device_signature(dev) == "cudax1", f"stamped {cal.device}")
         check(set(cal.us_per_kword) == {"fused", "ssum", "tiled_fused", "looped",
@@ -1336,6 +1384,7 @@ def phase_calibration(idx) -> None:
          large_us_per_kword=large.us_per_kword, large_seconds=round(t_large, 2),
          device=large.device, plans_on_the_random_index=plans,
          persisted=file_name, launch_counts=counts)
+    return large
 
 
 # ---------------------------------------------------------------------------
@@ -1391,7 +1440,7 @@ def phase_backends(idx) -> None:
         got = fn()
         torch.cuda.synchronize()
         shim_runs.append((name, q, got, to_result_ms(fn)))
-    counts = read_counts()
+    counts = read_counts("backends")
 
     report = []
     for index, backend, t, got, engine, ms in runs:
@@ -1434,7 +1483,7 @@ def phase_backends_tiled(idx) -> None:
         tiled_alg = idx.last_info["backend"]
         tiled_ms = to_result_ms(lambda: idx.execute(q))
         runs.append((name, q, over, got, tiled, tiled_alg, rb_ms, tiled_ms))
-    counts = read_counts()
+    counts = read_counts("backends_tiled")
     report = []
     for name, q, over, got, tiled, tiled_alg, rb_ms, tiled_ms in runs:
         bad = mismatches(got, tiled)
@@ -1484,7 +1533,7 @@ def phase_obs(idx, reps: int = 20) -> None:
             info_words += idx.last_info["decode_words"]
     torch.cuda.synchronize()
     obs.disable()
-    counts = read_counts()
+    counts = read_counts("obs")
     snap = obs.REGISTRY.snapshot()
     block_launches = snap["repro_kernel_launches_total"]["samples"].get("block", 0)
     decode_words = snap["repro_kernel_decode_words_total"]["samples"].get("", 0)
@@ -1642,7 +1691,7 @@ def phase_stream(tidx, composite, smi: str, seed: int):
     zero_counts()
     mat_s = {name: timed_s(lambda q=q, name=name: s.materialize(name, q))[1]
              for name, q in view_queries.items()}
-    report["materialize"] = {"seconds": mat_s, "launch_counts": read_counts()}
+    report["materialize"] = {"seconds": mat_s, "launch_counts": read_counts("stream")}
 
     # three seeded batches, replayed with torch ops on a clone of the dense view
     r0 = s.r
@@ -1663,13 +1712,13 @@ def phase_stream(tidx, composite, smi: str, seed: int):
         _, secs = timed_s(lambda: s.update(**kw))
         batches.append({"batch": name, "updates": int(cols.size), "apply_ms": secs * 1e3,
                         "patched_tiles": s.delta_stats()["patched_tiles"],
-                        "launch_counts": read_counts()})
+                        "launch_counts": read_counts("stream")})
         replay_on_dense(dense, cols, pos, on)
     zero_counts()
     (start, stop), secs = timed_s(lambda: s.append_rows(app))
     batches.append({"batch": "append_rows", "rows": STREAM_APPEND_ROWS, "apply_ms": secs * 1e3,
                     "patched_tiles": s.delta_stats()["patched_tiles"], "r": [r0, s.r],
-                    "launch_counts": read_counts()})
+                    "launch_counts": read_counts("stream")})
     check((start, stop) == (r0, r0 + STREAM_APPEND_ROWS), f"append_rows range {(start, stop)}")
     r1 = s.r
     nw1 = n_words_for(r1)
@@ -1685,7 +1734,7 @@ def phase_stream(tidx, composite, smi: str, seed: int):
     # the views refresh through K1 over the touched tiles only
     zero_counts()
     _, refresh_s = timed_s(s.refresh)
-    refresh_counts = read_counts()
+    refresh_counts = read_counts("stream")
     report["view_refresh"] = {"ms": refresh_s * 1e3, "launch_counts": refresh_counts,
                               "info": {v: s.view_info(v) for v in view_queries}}
     check(refresh_counts["circuit_eval"] == len(view_queries),
@@ -1712,7 +1761,7 @@ def phase_stream(tidx, composite, smi: str, seed: int):
                      "launches": info.get("launches"), "first_call_s": first_s})
     many_got, many_s = timed_s(lambda: s.execute_many(many))
     many_info = dict(s.index().last_info)
-    overlay_counts = read_counts()
+    overlay_counts = read_counts("stream")
     check(overlay_counts["circuit_eval"] > 0, f"the overlay's routes launched K1, {overlay_counts}")
     check(overlay_counts["tiled_block"] == 0, "the overlay never takes the scan engine")
     for rec in runs + [many_info]:
@@ -1786,7 +1835,7 @@ def phase_stream(tidx, composite, smi: str, seed: int):
     got = s.execute_many(many)
     for j in range(len(many)):
         check(mismatches(got[j], many_got[j]) == 0, f"many[{j}]: compacted differs")
-    compact_counts = read_counts()
+    compact_counts = read_counts("stream")
     check(compact_counts["tiled_block"] > 0, f"the compacted base launched K2, {compact_counts}")
     report["compaction"] = {"seconds": compact_s, "rebuild_seconds": rebuild_s,
                             "queries": compact_runs, "launch_counts": compact_counts}
@@ -1806,7 +1855,7 @@ def phase_stream(tidx, composite, smi: str, seed: int):
     replay_on_dense(dense, cols, pos, on)
     q = queries["interval_2_10"]
     got = s2.execute(q)
-    auto_counts = read_counts()
+    auto_counts = read_counts("stream")
     check(mismatches(got, k1_dense(q)) == 0,
           "after auto-compaction: differs from K1 over the dense copy")
     report["auto_compaction"] = {"updates": k, "threshold_words": need, "seconds": auto_s,
@@ -1884,7 +1933,7 @@ def phase_persist(s, dense, queries, smi: str, seed: int) -> None:
         check(rec_a.wal_version == s.wal_version - 1, "the torn record was dropped")
         check(mismatches(rec_a.execute(q), want_a) == 0,
               "after a torn record: differs from the index as of the batch before")
-        report["durable_launch_counts"] = read_counts()
+        report["durable_launch_counts"] = read_counts("persist")
 
         # load(to_device=True) and save again: the same bytes
         idx = BitmapIndex.load(snap, to_device=True)
@@ -1906,7 +1955,7 @@ def phase_persist(s, dense, queries, smi: str, seed: int) -> None:
         check(pidx.last_info["engine"] == "merge", "the paged store takes the merge engine")
         check(mismatches(got, want_snap) == 0, "paged query differs from the checkpointed index")
         paged_ms = to_result_ms(lambda: pidx.execute(paged_q, backend="tiled_fused"))
-        paged_counts = read_counts()
+        paged_counts = read_counts("persist")
         check(paged_counts["circuit_eval"] > 0 and paged_counts["tiled_block"] == 0,
               f"the paged path launched K1 and never K2, {paged_counts}")
         report["paged"] = {"query": "threshold_2_of_s0_s2", "to_result_ms": paged_ms,
@@ -1930,12 +1979,705 @@ def phase_persist(s, dense, queries, smi: str, seed: int) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the query server
+# ---------------------------------------------------------------------------
+
+SERVE_POOL = 256
+SERVE_REQUESTS = 4096
+SERVE_CLIENTS = 8
+SERVE_IN_FLIGHT = 32  # requests a client keeps outstanding
+SERVE_ZIPF = 1.1
+SERVE_TWIN_SHARE = 0.25  # requests sent with their members reordered
+SERVE_CACHE = 128
+SERVE_SHED_PENDING = 8
+SERVE_SHED_REQUESTS = 512
+SERVE_WAIT_S = 300.0  # every wait of the serve phase ends within this
+
+
+def serve_pool(names: tuple, seed: int) -> list:
+    """``SERVE_POOL`` distinct queries as (query, twin) pairs, the twin the
+    same query with its members (and its Or's children) reordered:
+    thresholds T = 2..n-1 and 64 intervals over every column, 64 thresholds
+    over 16-column subsets, and composites to fill the pool."""
+    from repro_torch.query import And, Col, Interval, Not, Or, Parity, Threshold
+
+    rng = np.random.default_rng(seed)
+    n = len(names)
+
+    def perm(cols):
+        return tuple(cols[i] for i in rng.permutation(len(cols)))
+
+    def sub(k):
+        return tuple(names[i] for i in sorted(rng.choice(n, k, replace=False)))
+
+    pool = [(Threshold(t), Threshold(t, over=perm(names))) for t in range(2, n)]
+    spans = set()
+    while len(spans) < 64:
+        lo = int(rng.integers(1, n - 1))
+        spans.add((lo, int(rng.integers(lo, n))))
+    pool += [(Interval(lo, hi), Interval(lo, hi, over=perm(names))) for lo, hi in sorted(spans)]
+    for _ in range(64):
+        t, s = int(rng.integers(2, 16)), sub(16)
+        pool.append((Threshold(t, over=s), Threshold(t, over=perm(s))))
+    while len(pool) < SERVE_POOL:
+        t, s16, s8, c = int(rng.integers(2, 8)), sub(16), sub(8), Col(names[int(rng.integers(n))])
+        pool.append((Or(And(Threshold(t, over=s16), Not(c)), Parity(over=s8)),
+                     Or(Parity(over=perm(s8)), And(Not(c), Threshold(t, over=perm(s16))))))
+    return pool
+
+
+def run_clients(n_clients: int, fn) -> float:
+    """Run ``fn(ci)`` in ``n_clients`` threads; returns the wall seconds
+    until all joined.  A client's exception, or one left running after
+    ``SERVE_WAIT_S``, fails the phase."""
+    import threading
+
+    errors = []
+
+    def body(ci):
+        try:
+            fn(ci)
+        except BaseException as e:  # noqa: BLE001 - re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(ci,)) for ci in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_WAIT_S)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client thread did not finish")
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def stop_server(server) -> None:
+    """``server.stop()`` within ``SERVE_WAIT_S``; its batcher must be gone."""
+    import threading
+
+    batcher = server._thread
+    stopper = threading.Thread(target=server.stop)
+    stopper.start()
+    stopper.join(SERVE_WAIT_S)
+    check(not stopper.is_alive() and (batcher is None or not batcher.is_alive()),
+          "the server did not stop")
+
+
+def phase_serve(idx, calibration, smi: str, seed: int) -> None:
+    """The threaded ``QueryServer`` over the random index under a Zipf load."""
+    from repro_torch.core.calibration import Calibration, clear_calibration, set_calibration
+    from repro_torch.kernels import threshold_ssum as K
+    from repro_torch.query import bind_members, canonical_key
+    from repro_torch.query.index import circuit_for
+    from repro_torch.serve import Overloaded, QueryServer
+
+    names = idx.names
+    dev = idx.device
+    pool = serve_pool(names, seed + 14)
+    keys = [canonical_key(bind_members(q, names)) for q, _ in pool]
+    check(len(set(keys)) == SERVE_POOL, "the pool's queries are distinct")
+    check(all(canonical_key(bind_members(tw, names)) == key for (_, tw), key in zip(pool, keys)),
+          "a reordered twin has its query's canonical key")
+    rng = np.random.default_rng(seed + 15)
+    p = np.arange(1, SERVE_POOL + 1, dtype=np.float64) ** -SERVE_ZIPF
+    rank = rng.permutation(SERVE_POOL)  # the query at each popularity rank
+    draws = rank[rng.choice(SERVE_POOL, SERVE_REQUESTS, p=p / p.sum())]
+    twin = rng.random(SERVE_REQUESTS) < SERVE_TWIN_SHARE
+    report = {"card": smi, "pool": SERVE_POOL, "requests": SERVE_REQUESTS,
+              "clients": SERVE_CLIENTS, "in_flight_per_client": SERVE_IN_FLIGHT,
+              "zipf": SERVE_ZIPF, "distinct_drawn": int(np.unique(draws).size),
+              "twins_sent": int(twin.sum())}
+
+    # the calibration phase's constants, installed: plans and feedback use them
+    cal = Calibration.from_obj(calibration.to_obj())
+    set_calibration(cal)
+    plans_before = [idx.explain(q, memo=False).algorithm for q, _ in pool]
+    before = {"us_per_kword": dict(cal.us_per_kword), "samples": dict(cal.samples)}
+
+    widest: list = []
+    execute_many = idx.execute_many
+
+    def recording(queries, **kw):  # remembers the widest batch the server sends
+        qs = list(queries)
+        if len(qs) > len(widest):
+            widest[:] = qs
+        return execute_many(qs, **kw)
+
+    # each drawn query's oracle, made before the load: K1 over the query's
+    # own one-output circuit, past the planner and its memo
+    want = {i: idx._mask(K.run_circuit_cached(idx.columns, circuit_for((pool[i][0],), idx.n, names)))
+            for i in np.unique(draws).tolist()}
+    torch.cuda.synchronize()
+
+    server = QueryServer(idx, window=0.002, max_batch=64, cache_entries=SERVE_CACHE)
+    check(server.calibration is cal, "the server feeds the installed calibration")
+    # every result is held against its oracle on receipt; the mismatched
+    # words add up on the card and are read after the load
+    bad_words = [torch.zeros((), dtype=torch.int64, device=dev) for _ in range(SERVE_CLIENTS)]
+    received = [0] * SERVE_CLIENTS
+
+    def client(ci):
+        mine = list(range(ci, SERVE_REQUESTS, SERVE_CLIENTS))
+        for lo in range(0, len(mine), SERVE_IN_FLIGHT):
+            futs = [(int(draws[j]), server.submit(pool[draws[j]][int(twin[j])]))
+                    for j in mine[lo:lo + SERVE_IN_FLIGHT]]
+            for i, fut in futs:
+                out = fut.result(SERVE_WAIT_S)
+                check(out.shape == want[i].shape and out.is_cuda, f"query {i}: result shape/device")
+                bad_words[ci] += (out != want[i]).sum()
+                received[ci] += 1
+
+    idx.execute_many = recording
+    try:
+        zero_counts()
+        server.start()
+        wall = run_clients(SERVE_CLIENTS, client)
+        stop_server(server)
+        counts = read_counts("serve")
+    finally:
+        del idx.execute_many
+    info = server.info()
+    check(info["requests"] == SERVE_REQUESTS and info["served"] == SERVE_REQUESTS,
+          f"served {info['served']} of {info['requests']} requests")
+    check(info["executed"] + info["cache_hits"] + info["dedup_hits"] == SERVE_REQUESTS,
+          f"executed + cache hits + dedup hits = {info['executed']} + {info['cache_hits']} + "
+          f"{info['dedup_hits']}, not {SERVE_REQUESTS}")
+    check(info["errors"] == 0 and info["shed"] == 0 and info["pending"] == 0, f"info {info}")
+    check(counts["circuit_eval"] > 0, f"the served queries launched K1, {counts}")
+    cache_bytes = sum(out.numel() * out.element_size() for _cols, out in server._cache._od.values())
+
+    bad = sum(int(b.item()) for b in bad_words)
+    tensors = sum(received)
+    check(tensors == SERVE_REQUESTS, f"{tensors} results received, {SERVE_REQUESTS} sent")
+    check(bad == 0, f"{bad} served words differ from K1 over each query's own circuit")
+    del want, bad_words
+
+    circ = circuit_for(tuple(widest), idx.n, names)
+    prog = K._program_for(circ, None)
+    # what one new bucket of that width costs: the host's compile (its queries
+    # in another order, so no cache holds them) and K1 over the 1 GiB index
+    t0 = time.perf_counter()
+    fresh = circuit_for(tuple(reversed(widest)), idx.n, names)
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    K._program_for(fresh, None)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    k1_ms = statistics.median(cuda_ms(lambda: K.run_circuit_cached(idx.columns, circ), reps=5))
+    # these shapes (up to 64 outputs in one circuit) reach K1 only here:
+    # held against the plain version over the whole array
+    widest_bad = mismatches(idx._mask(K.run_circuit_cached(idx.columns, circ)),
+                            idx._mask(K.run_circuit_plain(idx.columns, circ)))
+    check(widest_bad == 0, f"the widest batch's circuit: {widest_bad} K1 words differ from "
+                           "the plain version")
+    plans_after = [idx.explain(q, memo=False).algorithm for q, _ in pool]
+    after = {"us_per_kword": dict(cal.us_per_kword), "samples": dict(cal.samples)}
+
+    # where one pump's host time goes: the 64 most popular queries, uncached
+    probe = QueryServer(idx, window=0, max_batch=64, cache_entries=0)
+    for i in rank[:64].tolist():
+        probe.submit(pool[i][0])
+    pump_profile = host_profile(probe.pump, top=12)
+    check(probe.info()["executed"] == 64, "the profiled pump executed 64 queries")
+    report.update({
+        "seconds": wall, "served_per_s": SERVE_REQUESTS / wall,
+        "executed_per_s": info["executed"] / wall,
+        **{key: info[key] for key in ("executed", "cache_hits", "dedup_hits", "batches")},
+        "latency_s": info["latency"], "queue_wait_s": info["queue_wait"],
+        "batch_size_hist": info["batch_size_hist"],
+        "k1_launches_per_executed": counts["circuit_eval"] / info["executed"],
+        "widest_batch": {"k": len(widest), "gates": len(circ.ops),
+                         "n_registers": prog.n_registers, "compile_ms": compile_ms,
+                         "encode_ms": encode_ms, "k1_ms_median": k1_ms,
+                         "mismatch_plain": widest_bad,
+                         "launch_shape": list(K.pick_launch_shape(prog.n_registers,
+                                                                  K._max_shared(dev)))},
+        "cache": {"entries": info["cache_entries"], "capacity": SERVE_CACHE,
+                  "bytes_on_card": cache_bytes},
+        "result_tensors_checked": tensors, "mismatched_words": bad,
+        "plan_memo": info["plan_memo"], "pump_profile": pump_profile,
+        "calibration": {"before": before, "after": after,
+                        "pool_plans_changed": sum(a != b for a, b in zip(plans_before, plans_after)),
+                        "pool_plans": sorted(set(plans_after))},
+        "launch_counts": counts,
+    })
+    clear_calibration()
+    del server
+
+    # admission control: a small pending bound sheds, and loses no accepted request
+    hot = [int(i) for i in rank[:SERVE_SHED_PENDING * 2]]
+    want = {i: idx.execute(pool[i][0]) for i in hot}
+    shed_rng = np.random.default_rng(seed + 16)
+    picks = shed_rng.choice(hot, (SERVE_CLIENTS, SERVE_SHED_REQUESTS // SERVE_CLIENTS))
+    accepted, refused, bad_shed = [0] * SERVE_CLIENTS, [0] * SERVE_CLIENTS, [0] * SERVE_CLIENTS
+    server = QueryServer(idx, window=0.002, max_pending=SERVE_SHED_PENDING, cache_entries=0)
+
+    def eager_client(ci):
+        futs = []
+        for i in picks[ci].tolist():
+            try:
+                futs.append((i, server.submit(pool[i][0])))
+            except Overloaded:
+                refused[ci] += 1
+        accepted[ci] = len(futs)
+        for i, fut in futs:
+            bad_shed[ci] += mismatches(fut.result(SERVE_WAIT_S), want[i])
+
+    zero_counts()
+    server.start()
+    run_clients(SERVE_CLIENTS, eager_client)
+    stop_server(server)
+    shed_counts = read_counts("serve")
+    shed = server.info()
+    check(sum(refused) == shed["shed"] > 0, f"a pending bound of {SERVE_SHED_PENDING} sheds: {shed}")
+    check(sum(accepted) == shed["served"] == SERVE_SHED_REQUESTS - shed["shed"],
+          f"every accepted request served: {sum(accepted)} accepted, {shed['served']} served")
+    check(sum(bad_shed) == 0, f"{sum(bad_shed)} words differ under shedding")
+    report["shedding"] = {"max_pending": SERVE_SHED_PENDING, "sent": SERVE_SHED_REQUESTS,
+                          "shed": shed["shed"], "served": shed["served"],
+                          "executed": shed["executed"], "dedup_hits": shed["dedup_hits"],
+                          "mismatched_words": sum(bad_shed), "launch_counts": shed_counts}
+    emit("serve", **report)
+
+
+def serve_stream_queries(data: tuple, touched: tuple) -> list:
+    """64 distinct queries over the data columns, some reading ``touched``
+    and some not."""
+    from repro_torch.query import And, Col, Interval, Not, Threshold
+
+    rest = tuple(c for c in data if c not in touched)
+    qs = [Threshold(t, over=data) for t in range(2, 18)]
+    qs += [Threshold(t, over=rest[8:40]) for t in range(2, 18)]
+    qs += [Interval(lo, lo + 3, over=data[a:a + 16]) for lo, a in
+           zip(range(1, 17), range(0, 48, 3))]
+    qs += [And(Threshold(2, over=data[a:a + 8]), Not(Col(data[(a + 9) % len(data)])))
+           for a in range(0, 64, 4)]
+    return qs
+
+
+def phase_serve_stream(s, smi: str, seed: int) -> None:
+    """The server over a ``StreamingIndex`` of the clustered index: a batch
+    of updates invalidates exactly the cached results that read a touched
+    column, and the results served after it are the new bits."""
+    from repro_torch.core.bitmaps import packed_tail_mask
+    from repro_torch.kernels.threshold_ssum import run_circuit_cached
+    from repro_torch.query import bind_members, column_refs
+    from repro_torch.query.index import circuit_for
+    from repro_torch.serve import QueryServer
+    from repro_torch.stream import CompactionPolicy, StreamingIndex
+
+    base = s._base
+    dev = base.device
+    data = tuple(nm for nm in base.names if nm not in s.views)
+    touched = data[:4]
+    st = StreamingIndex(base, policy=CompactionPolicy(auto=False))
+    dense = base.columns[[base.names.index(nm) for nm in data]].clone()
+    queries = serve_stream_queries(data, touched)
+    reads = [column_refs(bind_members(q, st.names)) for q in queries]
+    expect = sum(bool(r & set(touched)) for r in reads)
+    mask = packed_tail_mask(st.r, dense.shape[1], dev)
+
+    def k1_dense(q):
+        want = run_circuit_cached(dense, circuit_for((q,), len(data), data))
+        return want if mask is None else want & mask
+
+    server = QueryServer(st, window=0)
+    zero_counts()
+    t0 = time.perf_counter()
+    first = server.serve_many(queries, timeout=SERVE_WAIT_S)
+    first_s = time.perf_counter() - t0
+    first_counts = read_counts("serve_stream")
+    check(server.info()["cache_entries"] == len(queries), "every result cached")
+    bad_before = sum(mismatches(got, k1_dense(q)) for q, got in zip(queries, first))
+
+    rng = np.random.default_rng(seed + 17)
+    cols = rng.integers(0, len(touched), 4096)
+    pos = rng.integers(0, st.r, 4096)
+    on = rng.random(4096) < 0.5
+    t0 = time.perf_counter()
+    st.update(**as_update(data, cols, pos, on))
+    update_ms = (time.perf_counter() - t0) * 1e3
+    replay_on_dense(dense, cols, pos, on)
+    info = server.info()
+    check(info["invalidations"] == expect and info["cache_entries"] == len(queries) - expect,
+          f"invalidated {info['invalidations']} cached results, {expect} read {touched}")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    again = server.serve_many(queries, timeout=SERVE_WAIT_S)
+    again_s = time.perf_counter() - t0
+    again_counts = read_counts("serve_stream")
+    info = server.info()
+    check(info["cache_hits"] == len(queries) - expect, f"cache hits {info['cache_hits']}")
+    bad_after = sum(mismatches(got, k1_dense(q)) for q, got in zip(queries, again))
+    changed = sum(mismatches(a, b) > 0 for a, b in zip(first, again))
+    check(bad_before == 0 and bad_after == 0,
+          f"{bad_before} / {bad_after} words differ from K1 over the replayed dense copy")
+    check(changed > 0, "the update changed some served result")
+    check(first_counts["circuit_eval"] + first_counts["tiled_block"] > 0
+          and again_counts["circuit_eval"] > 0, "the served queries launched the kernels")
+    emit("serve_stream", card=smi, queries=len(queries), touched=list(touched),
+         reading_touched=expect, first_serve_s=first_s, update_4096_ms=update_ms,
+         invalidations=info["invalidations"], cache_hits_after=info["cache_hits"],
+         second_serve_s=again_s, results_changed=changed,
+         mismatched_words={"before": bad_before, "after": bad_after},
+         engine_after=st.index().last_info.get("engine") if st.index().last_info else None,
+         launch_counts={"first": first_counts, "after_update": again_counts})
+
+
+# ---------------------------------------------------------------------------
+# phase 15: similarity search and windowed counts
+# ---------------------------------------------------------------------------
+
+# the corpus of benchmarks/search_bench.py's FULL shape, at 2**20 records
+SEARCH_ALPHABET = "abcdefghijklmnop"
+SEARCH_LENGTHS = (6, 16)  # lengths 6..15
+SEARCH_Q, SEARCH_K, SEARCH_TILE_WORDS = 2, 2, 8
+SEARCH_QUERIES = 16
+SEARCH_TOPK, SEARCH_TOPK_QUERIES = 10, 4
+SEARCH_TOPK_TRIES = 64  # further queries top-k may try for ones that stop before the vacuous band
+SEARCH_APPEND = 2**12
+SEARCH_APPEND_ALPHABET = "qrstuvwxyz"  # letters no record of the corpus holds
+SEARCH_MINHASH_ROWS_LOG2 = 16
+WINDOW_SERIES, WINDOW_BATCHES, WINDOW_EVENTS, WINDOW_SPAN = 12, 24, 2**14, 8
+
+
+def make_strings(n: int, rng, alphabet: str = SEARCH_ALPHABET,
+                 lengths: tuple = SEARCH_LENGTHS) -> list:
+    """``n`` random strings over ``alphabet`` with lengths in
+    ``range(*lengths)``, built as one NUL-padded numpy unicode array
+    (numpy drops the trailing NULs)."""
+    codes = np.frombuffer(alphabet.encode("utf-32-le"), np.uint32)
+    width = lengths[1] - 1
+    cps = codes[rng.integers(0, codes.size, (n, width))]
+    cps[np.arange(width)[None, :] >= rng.integers(lengths[0], lengths[1], n)[:, None]] = 0
+    return np.ascontiguousarray(cps).view(f"<U{width}").ravel().tolist()
+
+
+def edited(s: str, n_edits: int, rng, alphabet: str = SEARCH_ALPHABET) -> str:
+    """``s`` after ``n_edits`` random substitutions, insertions or deletions."""
+    for _ in range(n_edits):
+        i = int(rng.integers(0, len(s) + 1))
+        c = alphabet[int(rng.integers(0, len(alphabet)))]
+        op = int(rng.integers(0, 3)) if len(s) > 1 else 1
+        s = (s[:i] + c + s[i + 1:]) if op == 0 else (s[:i] + c + s[i:]) if op == 1 \
+            else (s[:i] + s[i + 1:] if i < len(s) else s[:-1])
+    return s
+
+
+class GramOracle:
+    """The distinct bigrams of every record as a CSR (record id, gram id),
+    from numpy alone: ``#`` + string + ``$``, each gram the pair of code
+    points.  Independent of the tokenizer and the index."""
+
+    def __init__(self, strings: list):
+        width = max(len(s) for s in strings)
+        cps = np.array(strings, dtype=f"<U{width}").view(np.uint32).reshape(len(strings), width)
+        lens = np.fromiter(map(len, strings), np.int64, len(strings))
+        padded = np.zeros((len(strings), width + 2), np.int64)
+        padded[:, 0] = ord("#")
+        padded[:, 1:width + 1] = cps
+        padded[np.arange(len(strings)), lens + 1] = ord("$")
+        grams = (padded[:, :-1] << 21) | padded[:, 1:]
+        valid = np.arange(width + 1)[None, :] <= lens[:, None]
+        grams = np.where(valid, grams, -1)
+        grams.sort(axis=1)
+        first = np.ones_like(valid)
+        first[:, 1:] = grams[:, 1:] != grams[:, :-1]
+        keep = first & (grams >= 0)
+        self.n = len(strings)
+        self.cps, self.lens = cps, lens
+        self.rec = np.nonzero(keep)[0]
+        self.gram = grams[keep]
+
+    def edit_distances(self, s: str) -> np.ndarray:
+        """Levenshtein distance from ``s`` to every record: the textbook
+        dynamic program, one numpy vector over the records a cell."""
+        q = np.array([ord(c) for c in s], np.uint32)
+        width = self.cps.shape[1]
+        prev = np.broadcast_to(np.arange(width + 1, dtype=np.int16), (self.n, width + 1)).copy()
+        for i, qc in enumerate(q.tolist(), 1):
+            cur = np.empty_like(prev)
+            cur[:, 0] = i
+            for j in range(1, width + 1):
+                sub = prev[:, j - 1] + (self.cps[:, j - 1] != qc)
+                cur[:, j] = np.minimum(np.minimum(prev[:, j], cur[:, j - 1]) + 1, sub)
+            prev = cur
+        return prev[np.arange(self.n), self.lens]
+
+    @staticmethod
+    def query_grams(s: str) -> np.ndarray:
+        p = [ord("#")] + [ord(c) for c in s] + [ord("$")]
+        return np.unique([(a << 21) | b for a, b in zip(p, p[1:])])
+
+    def candidates(self, s: str, k: int, r: int | None = None) -> tuple:
+        """(T, sorted ids of the first ``r`` records sharing >= T of the
+        query's distinct grams), T = n_grams - k * q."""
+        g = self.query_grams(s)
+        t = g.size - k * SEARCH_Q
+        r = self.n if r is None else r
+        sel = np.isin(self.gram, g) & (self.rec < r)
+        counts = np.bincount(self.rec[sel], minlength=r)
+        return t, np.nonzero(counts >= t)[0]
+
+
+def topk_goes_vacuous(s: str, d: np.ndarray) -> bool:
+    """Whether ``topk(s, SEARCH_TOPK)`` reaches the vacuous band, from the
+    distances ``d`` of every record: it stops at the edit budget ``j`` of the
+    k-th nearest record, and the band at ``j`` is vacuous when
+    ``n_grams - j * q <= 0``."""
+    j = int(np.partition(d, SEARCH_TOPK - 1)[SEARCH_TOPK - 1])
+    return GramOracle.query_grams(s).size - j * SEARCH_Q <= 0
+
+
+def checked_topk(sidx, s: str, d: np.ndarray) -> dict:
+    """``sidx.topk(s, SEARCH_TOPK)``, held against the oracle's distances
+    ``d`` (ties by row id); its reading."""
+    t0 = time.perf_counter()
+    tk = sidx.topk(s, SEARCH_TOPK)
+    secs = time.perf_counter() - t0
+    dists = tk.distances.tolist()
+    best = np.lexsort((np.arange(d.size), d))[:SEARCH_TOPK]
+    check(tk.ids.tolist() == best.tolist() and dists == d[best].tolist(),
+          f"{s!r}: top-k {list(zip(dists, tk.ids.tolist()))}, oracle "
+          f"{list(zip(d[best].tolist(), best.tolist()))}")
+    check(tk.vacuous == topk_goes_vacuous(s, d), f"{s!r}: vacuous {tk.vacuous}, not as predicted")
+    return {"query": s, "distances": dists, "relaxations": tk.relaxations,
+            "verified": tk.verified, "vacuous": tk.vacuous, "seconds": secs}
+
+
+def phase_search(dev, rows_log2: int, smi: str, seed: int) -> None:
+    import dataclasses
+
+    from repro_torch.core import listalgos as LA
+    from repro_torch.query import Col, Threshold
+    from repro_torch.search import (MinHashParams, band_buckets, build_qgram_index,
+                                    edit_distance, minhash_signature, qgrams)
+
+    rng = np.random.default_rng(seed + 18)
+    r = 2**rows_log2
+    corpus = make_strings(r, rng)
+    extra = make_strings(SEARCH_APPEND, rng, SEARCH_ALPHABET + SEARCH_APPEND_ALPHABET)
+    oracle = GramOracle(corpus + extra)
+    report = {"card": smi, "records": r, "alphabet": len(SEARCH_ALPHABET),
+              "lengths": [SEARCH_LENGTHS[0], SEARCH_LENGTHS[1] - 1],
+              "q": SEARCH_Q, "k": SEARCH_K, "tile_words": SEARCH_TILE_WORDS}
+
+    t0 = time.perf_counter()
+    sidx = build_qgram_index(corpus, q=SEARCH_Q, tile_words=SEARCH_TILE_WORDS, device=dev)
+    torch.cuda.synchronize()
+    report["build"] = {"seconds": time.perf_counter() - t0, **sidx.build_seconds,
+                       "columns": len(sidx.stream.names), "n_words": sidx.index.n_words,
+                       "clean_fraction": sidx.index.store.member_stats(None).clean_fraction}
+
+    picks = rng.choice(r, SEARCH_QUERIES, replace=False)
+    queries = [edited(corpus[int(i)], 1 + j % 2, rng) for j, i in enumerate(picks)]
+    zero_counts()
+    runs = []
+    for s in queries:
+        cand = sidx.candidates(s, SEARCH_K)
+        info = dict(sidx.index.last_info or {})
+        runs.append((s, cand, info))
+    counts = read_counts("search")
+    check(counts["circuit_eval"] + counts["tiled_block"] > 0,
+          f"candidate generation launched the kernels, {counts}")
+
+    race = []
+    for (s, cand, info), i in zip(runs, picks):
+        t, want = oracle.candidates(s, SEARCH_K, r)
+        check(cand.t == t and not cand.vacuous, f"{s!r}: T {cand.t} vs the oracle's {t}")
+        check(np.array_equal(cand.ids, want), f"{s!r}: candidates differ from the gram-count oracle")
+        check(edit_distance(s, corpus[int(i)]) <= SEARCH_K and int(i) in set(cand.ids.tolist()),
+              f"{s!r}: the record it was edited from is a candidate")
+        grams = [Col(g) for g in sidx._present_grams(s)]
+        plan = sidx.index.explain(Threshold(cand.t, over=grams))
+        bitmap_ms = to_result_ms(lambda s=s: sidx.candidates(s, SEARCH_K))
+        t0 = time.perf_counter()
+        lists = sidx.posting_lists(s)
+        lists_ms = (time.perf_counter() - t0) * 1e3
+        point = {"query": s, "t": cand.t, "n_lists": len(lists),
+                 "list_elems": int(sum(x.size for x in lists)), "candidates": len(cand),
+                 "plan": plan.algorithm, "cost_words": plan.cost,
+                 "backend": info.get("backend"), "engine": info.get("engine"),
+                 "bitmap_to_result_ms": bitmap_ms, "posting_lists_ms": lists_ms, "lists_ms": {}}
+        for name, algo in (("mgopt", LA.mgopt), ("dsk", LA.dsk), ("scancount", LA.scancount_np)):
+            t0 = time.perf_counter()
+            got = np.asarray(algo(lists, cand.t, sidx.r))
+            point["lists_ms"][name] = (time.perf_counter() - t0) * 1e3
+            check(np.array_equal(got, cand.ids), f"{s!r}: {name} differs from the bitmap candidates")
+        race.append(point)
+    report["queries"] = race
+    report["launch_counts"] = counts
+    report["candidates_profile"] = host_profile(lambda: sidx.candidates(queries[0], SEARCH_K), top=8)
+
+    vac = sidx.candidates("ab", SEARCH_K)
+    check(vac.t <= 0 and vac.vacuous and len(vac) == sidx.r, "a vacuous query returns all rows")
+    report["vacuous"] = {"query": "ab", "t": vac.t, "candidates": len(vac)}
+
+    # top-k against the distances of every record (ties by row id), on the
+    # queries the oracle says stop before the vacuous band: that band
+    # verifies every row in Python, and the 2**16 index below covers it
+    tops = []
+    more = np.random.default_rng(seed + 20)  # more edited records, when a small corpus needs them
+    tried = queries + [edited(corpus[int(i)], 1, more) for i in more.choice(r, SEARCH_TOPK_TRIES)]
+    for s in tried:
+        if len(tops) == SEARCH_TOPK_QUERIES:
+            break
+        d = oracle.edit_distances(s)[:r]
+        if topk_goes_vacuous(s, d):
+            continue
+        tops.append(checked_topk(sidx, s, d))
+    check(len(tops) == SEARCH_TOPK_QUERIES and not any(tk["vacuous"] for tk in tops),
+          f"{len(tops)} top-k queries stop before the vacuous band")
+    report["topk"] = tops
+
+    zero_counts()
+    t0 = time.perf_counter()
+    start, stop = sidx.append(extra)
+    append_s = time.perf_counter() - t0
+    check((start, stop) == (r, r + SEARCH_APPEND), f"append range {(start, stop)}")
+    after = []
+    for s in (queries[0], edited(extra[0], 1, rng, SEARCH_ALPHABET + SEARCH_APPEND_ALPHABET)):
+        cand = sidx.candidates(s, SEARCH_K)
+        t, want = oracle.candidates(s, SEARCH_K)
+        check(cand.t == t and np.array_equal(cand.ids, want),
+              f"{s!r} after the append: candidates differ from the oracle")
+        after.append({"query": s, "t": t, "candidates": len(cand),
+                      "engine": (sidx.index.last_info or {}).get("engine")})
+    report["append"] = {"records": SEARCH_APPEND, "seconds": append_s,
+                        "columns": len(sidx.stream.names), "queries": after,
+                        "launch_counts": read_counts("search")}
+    del sidx
+
+    # minhash bands: signatures are hashed per record on the host
+    m = 2**min(SEARCH_MINHASH_ROWS_LOG2, rows_log2)
+    params = MinHashParams()
+    t0 = time.perf_counter()
+    midx = build_qgram_index(corpus[:m], q=SEARCH_Q, minhash=params,
+                             tile_words=SEARCH_TILE_WORDS, device=dev)
+    build_s = time.perf_counter() - t0
+    buckets = np.array([band_buckets(minhash_signature(qgrams(s, SEARCH_Q), params), params)
+                        for s in corpus[:m]])
+    mh = []
+    for j, s in enumerate(corpus[:4] + queries[:4]):
+        qb = np.array(band_buckets(minhash_signature(qgrams(s, SEARCH_Q), params), params))
+        bands = 1 + j % params.bands
+        got = midx.minhash_candidates(s, min_bands=bands)
+        want = np.nonzero((buckets == qb).sum(1) >= bands)[0]
+        check(np.array_equal(got.ids, want), f"{s!r}: minhash candidates differ")
+        mh.append({"query": s, "min_bands": bands, "candidates": len(got)})
+    check(all(i in set(midx.minhash_candidates(corpus[i], min_bands=params.bands).ids.tolist())
+              for i in range(4)), "a record shares every band with itself")
+    report["minhash"] = {"records": m, "params": dataclasses.asdict(params),
+                         "build_seconds": build_s, **{f"build_{k}": v for k, v in
+                                                      midx.build_seconds.items()},
+                         "queries": mh}
+
+    # the vacuous relaxation: a top-k whose last band is every row left
+    moracle = GramOracle(corpus[:m])
+    for s in queries + ["ab"]:  # "ab": 3 grams, and no record is that short
+        d = moracle.edit_distances(s)
+        if topk_goes_vacuous(s, d):
+            break
+    vac_tk = checked_topk(midx, s, d)
+    check(vac_tk["vacuous"] and vac_tk["verified"] == m,
+          f"{s!r}: a vacuous top-k verifies all {m} rows, {vac_tk}")
+    report["topk_vacuous"] = {"records": m, **vac_tk}
+    del midx
+    report["window"] = window_run(dev, seed)
+    emit("search", **report)
+
+
+def window_run(dev, seed: int) -> dict:
+    """``WindowedStream``: 12 series, 24 batches of 2**14 events (batch b's
+    timestamps in [b, b + 1)), a window of 8 batches, a materialized count of
+    events in at least 2 series; after every batch the counts, ids, rows and
+    retirements equal a numpy oracle's, and each refresh stays inside the
+    touched-tiles bound of ``benchmarks/search_bench.py``."""
+    from repro_torch.query import Col, Threshold
+    from repro_torch.search import WindowedStream, WindowRetentionPolicy
+
+    rng = np.random.default_rng(seed + 19)
+    series = [f"w{i}" for i in range(WINDOW_SERIES)]
+    policy = WindowRetentionPolicy(min_dead_rows=4 * WINDOW_EVENTS, max_dead_ratio=0.5)
+    ws = WindowedStream(series, window=float(WINDOW_SPAN), tile_words=SEARCH_TILE_WORDS,
+                        policy=policy, device=dev)
+    ws.watch("hot", Threshold(2, over=[Col(c) for c in series]))
+    support = 1 + WINDOW_SERIES  # __live__ and every series the watch reads
+    seed_rows = ws.total_rows  # the all-zero rows a stream starts with
+    ts_all = np.empty(0)
+    member_all = np.empty((0, WINDOW_SERIES), bool)
+    rows = np.empty(0, np.int64)  # each event's row, renumbered when rows retire
+    next_row, dead, first_live = seed_rows, seed_rows, 0
+    steps = []
+    zero_counts()
+    for b in range(WINDOW_BATCHES):
+        ts = b + np.sort(rng.random(WINDOW_EVENTS))
+        order = np.argsort(rng.random((WINDOW_EVENTS, WINDOW_SERIES)), axis=1)
+        member = np.zeros((WINDOW_EVENTS, WINDOW_SERIES), bool)
+        k = rng.integers(1, 4, WINDOW_EVENTS)
+        np.put_along_axis(member, order[:, :3], np.arange(3)[None, :] < k[:, None], axis=1)
+        events = [(t, [series[c] for c in np.flatnonzero(m)]) for t, m in zip(ts.tolist(), member)]
+        t0 = time.perf_counter()
+        ws.append(events)
+        torch.cuda.synchronize()
+        append_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        info = ws.refresh_info("hot")
+        torch.cuda.synchronize()
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+
+        # the oracle: rows appended at the tail, expiry, the retention rule
+        ts_all = np.concatenate([ts_all, ts])
+        member_all = np.concatenate([member_all, member])
+        rows = np.concatenate([rows, next_row + np.arange(WINDOW_EVENTS)])
+        next_row += WINDOW_EVENTS
+        now = float(ts[-1])
+        expired = int(np.searchsorted(ts_all, now - WINDOW_SPAN, side="right")) - first_live
+        first_live += expired
+        dead += expired
+        retired = dead >= policy.min_dead_rows and dead >= policy.max_dead_ratio * next_row
+        if retired:
+            n_live = ts_all.size - first_live
+            rows[first_live:] = seed_rows + np.arange(n_live)
+            next_row, dead = seed_rows + n_live, seed_rows
+        live = slice(first_live, None)
+        hot = member_all[live].sum(1) >= 2
+        want_ids = rows[live][hot]
+        check((ws.total_rows, ws.dead_rows, ws.live_events) == (next_row, dead, ts_all.size - first_live),
+              f"batch {b}: rows {(ws.total_rows, ws.dead_rows, ws.live_events)}, oracle "
+              f"{(next_row, dead, ts_all.size - first_live)}")
+        check(ws.count("hot") == int(hot.sum()), f"batch {b}: count {ws.count('hot')}")
+        check(np.array_equal(ws.ids("hot"), want_ids), f"batch {b}: ids of the view")
+        check(ws.count(Col(series[0])) == int(member_all[live, 0].sum()), f"batch {b}: ad-hoc count")
+        step = {"batch": b, "append_ms": append_ms, "refresh_ms": refresh_ms, "expired": expired,
+                "retired": retired, "live": ts_all.size - first_live, "rows": next_row,
+                "count": int(hot.sum())}
+        if not retired:  # a retirement re-materializes the view: no refresh to bound
+            bound = info["tiles_refreshed"] * SEARCH_TILE_WORDS * (support + 1)
+            check(info["words_touched"] <= bound,
+                  f"batch {b}: refresh touched {info['words_touched']} words, bound {bound}")
+            step.update(info, bound=bound)
+        steps.append(step)
+    counts = read_counts("search")
+    check(any(st["retired"] for st in steps), "retention retired rows")
+    return {"series": WINDOW_SERIES, "batches": WINDOW_BATCHES, "events_per_batch": WINDOW_EVENTS,
+            "window_batches": WINDOW_SPAN, "tile_words": SEARCH_TILE_WORDS,
+            "policy": {"min_dead_rows": policy.min_dead_rows,
+                       "max_dead_ratio": policy.max_dead_ratio},
+            "steps": steps, "launch_counts": counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-log2", type=int, default=27,
                     help="the dense path's index holds 2**this - 5 rows (default 27: 1 GiB)")
     ap.add_argument("--tiled-rows-log2", type=int, default=27,
                     help="the tiled path's index holds 2**this - 5 rows (default 27: 1 GiB)")
+    ap.add_argument("--search-rows-log2", type=int, default=20,
+                    help="the similarity index holds 2**this records (default 20)")
     ap.add_argument("--columns", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
@@ -1965,8 +2707,9 @@ def main() -> int:
     idx, queries, many, counts = timed("main_path", phase_main_path, dev, args.rows_log2,
                                        args.columns, args.seed)
     head = timed("timing", phase_timing, idx, queries, many, args.reps)
-    timed("calibration", phase_calibration, idx)
+    cal = timed("calibration", phase_calibration, idx)
     timed("backends", phase_backends, idx)
+    timed("serve", phase_serve, idx, cal, smi, args.seed)
     n_words_dense = idx.n_words
     del idx
     tidx, tqueries, tmany, tcounts = timed("tiled_path", phase_tiled_path, dev,
@@ -1978,9 +2721,15 @@ def main() -> int:
                                       tqueries["composite"], smi, args.seed)
     del tidx
     timed("persist", phase_persist, stream, dense, squeries, smi, args.seed)
+    del dense
+    timed("serve_stream", phase_serve_stream, stream, smi, args.seed)
+    del stream
+    timed("search", phase_search, dev, args.search_rows_log2, smi, args.seed)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port must not import jax or the reference package")
 
+    # launches: the main paths' own windows; launches_by_phase: every window
+    by_phase = {name: c for name, c in PHASE_LAUNCHES.items() if any(c.values())}
     emit("done", seconds_total=round(time.perf_counter() - t_start, 1), seconds=seconds)
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -1989,6 +2738,7 @@ def main() -> int:
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": counts["circuit_eval"],
+        "launches_by_phase": {name: c["circuit_eval"] for name, c in by_phase.items()},
         "max_abs_err": k1_check["max_abs_err"],
         "ms": head["ms_median"],
         "plain_ms": head["plain_ms_median"],
@@ -2004,6 +2754,7 @@ def main() -> int:
         "source": K2_SOURCE,
         "replaces": K2_REPLACES,
         "launches": tcounts["tiled_block"],
+        "launches_by_phase": {name: c["tiled_block"] for name, c in by_phase.items()},
         "max_abs_err": k2_check["max_abs_err"],
         "ms": thead["k2_ms_median"],
         "plain_ms": thead["k2_plain_ms_median"],

@@ -193,7 +193,11 @@ _MAX_SHARED: dict[int, int] = {}
 
 def _lib():
     global _LIB
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _build.LOCK:
+        if _LIB is not None:  # bound by another thread while this one waited
+            return _LIB
         lib = _build.load_library("circuit_eval")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.circuit_eval_launch.argtypes = [vp, ll, ll, vp, i, vp, i, vp, ll, i, i, i, vp]

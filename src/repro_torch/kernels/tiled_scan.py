@@ -473,7 +473,11 @@ _MAX_SHARED: dict[int, int] = {}
 
 def _lib():
     global _LIB
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _build.LOCK:
+        if _LIB is not None:  # bound by another thread while this one waited
+            return _LIB
         lib = _build.load_library("tiled_block")
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.tiled_block_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,

@@ -18,7 +18,9 @@ def test_port_imports_neither_jax_nor_reference():
         "repro_torch.core.symmetric, repro_torch.core.blockrle, repro_torch.kernels.ops, "
         "repro_torch.stream, repro_torch.stream.delta, repro_torch.stream.overlay, "
         "repro_torch.stream.index, repro_torch.persist.format, repro_torch.persist.snapshot, "
-        "repro_torch.persist.wal, repro_torch.persist.tiers; "
+        "repro_torch.persist.wal, repro_torch.persist.tiers, repro_torch.serve, "
+        "repro_torch.serve.frontend, repro_torch.search, repro_torch.search.tokenize, "
+        "repro_torch.search.similarity, repro_torch.search.window; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]; "
         "print('BAD', bad); sys.exit(1 if bad else 0)"
@@ -35,6 +37,9 @@ def test_sources_name_neither_jax_nor_reference():
     for base, _dirs, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    for new in ("serve/frontend.py", "search/tokenize.py", "search/similarity.py",
+                "search/window.py"):
+        assert os.path.join(SRC, "repro_torch", *new.split("/")) in files
     for path in files:
         with open(path) as f:
             hit = pat.search(f.read())
