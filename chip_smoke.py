@@ -111,7 +111,28 @@ What it does, one JSON object per line:
                        append of 4,096 strings with new letters, minhash
                        bands on 2**16 records; then a ``WindowedStream`` of
                        12 series, 24 batches of 2**14 events and a window of 8
-                       batches, held against a numpy oracle after each batch.
+                       batches, held against a numpy oracle after each batch;
+                       last, the first 2**16 records in 4 row shards beside
+                       an unsharded index (candidates and a ``topk(10)`` equal).
+17. ``sharded``     -- run after ``obs``, on the clustered index: 8 row shards
+                       sliced with no column classified (dense views strided
+                       over the index's), every tiled query and
+                       ``execute_many`` against the unsharded index with the
+                       per-shard backends, K1 / K2 launches, first and cached
+                       to-result ms and a ``cProfile`` of one cached query; 16
+                       shards with a heterogeneous plan (``fused`` on the
+                       dense tail); ``add_column`` of a sharded result,
+                       ``replace_column``, ``from_sharded``; the shard-map path
+                       at 8 and 7 pieces (one K1 launch a piece, a piece
+                       against the plain version, ms beside one K1 launch);
+                       a sharded snapshot directory (``load_shard``,
+                       ``load_sharded``, re-saved to equal sha256); a 4-shard
+                       ``StreamingIndex`` (a view, 4,096 updates straddling
+                       every boundary, appended rows, compaction, a
+                       checkpoint and ``recover``) against K1 over a replayed
+                       dense copy; ``head_vote_mask`` over 64 x 2**20 KV
+                       positions through K1 against its plain version and
+                       numpy, and the KV-tile skip list.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line (each kernel's ``launches`` from its main path's own window: K1's
@@ -1742,7 +1763,7 @@ def phase_stream(tidx, composite, smi: str, seed: int):
 
     # the overlay: build and dense view timed on their own
     base_store = s._base.store
-    ov, ov_s = timed_s(lambda: OverlayStore(base_store, s._delta))
+    ov, ov_s = timed_s(lambda: OverlayStore(base_store, s._deltas[0]))
     _, dens_s = timed_s(ov.densify)
     report["overlay"] = {"build_s": ov_s, "densify_ms": dens_s * 1e3,
                          "n_tiles": ov.n_tiles, "n_words": ov.n_words}
@@ -2341,6 +2362,7 @@ SEARCH_TOPK_TRIES = 64  # further queries top-k may try for ones that stop befor
 SEARCH_APPEND = 2**12
 SEARCH_APPEND_ALPHABET = "qrstuvwxyz"  # letters no record of the corpus holds
 SEARCH_MINHASH_ROWS_LOG2 = 16
+SEARCH_SHARDS = 4
 WINDOW_SERIES, WINDOW_BATCHES, WINDOW_EVENTS, WINDOW_SPAN = 12, 24, 2**14, 8
 
 
@@ -2586,8 +2608,48 @@ def phase_search(dev, rows_log2: int, smi: str, seed: int) -> None:
           f"{s!r}: a vacuous top-k verifies all {m} rows, {vac_tk}")
     report["topk_vacuous"] = {"records": m, **vac_tk}
     del midx
+    report["sharded"] = sharded_search_run(dev, corpus[:m], queries, moracle)
     report["window"] = window_run(dev, seed)
     emit("search", **report)
+
+
+def sharded_search_run(dev, corpus: list, queries: list, oracle) -> dict:
+    """The same records in a ``SimilarityIndex`` of 4 row shards beside an
+    unsharded one: the candidates of every query and one ``topk(10)`` equal
+    (ids, distances), and the candidates equal to the gram-count oracle."""
+    from repro_torch.search import build_qgram_index
+
+    m = len(corpus)
+    t0 = time.perf_counter()
+    shidx = build_qgram_index(corpus, q=SEARCH_Q, tile_words=SEARCH_TILE_WORDS,
+                              n_shards=SEARCH_SHARDS, device=dev)
+    build_s = time.perf_counter() - t0
+    uidx = build_qgram_index(corpus, q=SEARCH_Q, tile_words=SEARCH_TILE_WORDS, device=dev)
+    check(shidx.index.n_shards == SEARCH_SHARDS, f"{shidx.index.n_shards} shards")
+    zero_counts()
+    runs = []
+    for s in queries:
+        got = shidx.candidates(s, SEARCH_K)
+        backends = list(shidx.index.last_info["backends"])
+        want = uidx.candidates(s, SEARCH_K)
+        t, oracle_ids = oracle.candidates(s, SEARCH_K, m)
+        check(got.t == want.t == t and np.array_equal(got.ids, want.ids)
+              and np.array_equal(got.ids, oracle_ids),
+              f"{s!r}: sharded candidates differ from the unsharded index's")
+        runs.append({"query": s, "t": got.t, "candidates": len(got), "backends": backends})
+    counts = read_counts("search")
+    for s in queries:
+        d = oracle.edit_distances(s)
+        if not topk_goes_vacuous(s, d):
+            break
+    tk, utk = shidx.topk(s, SEARCH_TOPK), uidx.topk(s, SEARCH_TOPK)
+    check(np.array_equal(tk.ids, utk.ids) and np.array_equal(tk.distances, utk.distances),
+          f"{s!r}: sharded top-k differs from the unsharded index's")
+    return {"records": m, "n_shards": SEARCH_SHARDS, "build_seconds": build_s,
+            "queries": runs, "launch_counts": counts,
+            "topk": {"query": s, "ids": tk.ids.tolist(), "vacuous": bool(tk.vacuous)},
+            "to_result_ms": to_result_ms(lambda: shidx.candidates(queries[0], SEARCH_K)),
+            "unsharded_to_result_ms": to_result_ms(lambda: uidx.candidates(queries[0], SEARCH_K))}
 
 
 def window_run(dev, seed: int) -> dict:
@@ -2670,6 +2732,375 @@ def window_run(dev, seed: int) -> dict:
             "steps": steps, "launch_counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: row-sharded execution on the clustered index
+# ---------------------------------------------------------------------------
+
+SHARDS = 8
+SHARDS_HETERO = 16
+SHARDS_RAGGED = 7  # the word axis does not split evenly: a padded last piece
+SHARDS_STREAM = 4
+SHARD_STREAM_UPDATES = 4096
+SHARD_STREAM_STRADDLE = 16  # updates a column within 2 bits of each shard boundary
+MASK_HEADS, MASK_KV_LOG2, MASK_T, MASK_TILE = 64, 20, 8, 2048
+
+
+def phase_sharded(tidx, queries, many, smi: str, seed: int) -> None:
+    """``tidx`` row-sharded: slicing, per-shard plans beside the unsharded
+    index, a heterogeneous plan, composition without a gather, the
+    shard-map path (one K1 launch a piece), sharded snapshot directories,
+    streaming over a sharded base, and the head-vote mask step."""
+    import tempfile
+
+    from repro_torch.kernels.threshold_ssum import run_circuit_plain
+    from repro_torch.persist import load_shard, load_sharded, save_sharded
+    from repro_torch.query import BitmapIndex, Col, Interval, Threshold
+    from repro_torch.query.index import circuit_for
+    from repro_torch.storage import tilestore as TS
+
+    dev = tidx.device
+    names = tidx.names
+    n, nw = tidx.n, tidx.n_words
+    report = {"card": smi, "n_columns": n, "n_words": nw, "tile_words": tidx.store.tile_words}
+    want = {name: tidx.execute(q) for name, q in queries.items()}
+    want_many = tidx.execute_many(many)
+    torch.cuda.synchronize()
+
+    # 1. slicing is bookkeeping: no column is classified again
+    classified = []
+    real_classify = TS._classify_column
+    TS._classify_column = lambda *a, **k: classified.append(1) or real_classify(*a, **k)
+    t0 = time.perf_counter()
+    sidx = tidx.shard(n_shards=SHARDS)
+    slice_s = time.perf_counter() - t0
+    TS._classify_column = real_classify
+    check(not classified, f"slicing classified {len(classified)} columns")
+    check(sidx.n_shards == SHARDS and sidx.store.densify() is tidx.columns,
+          "the sharded store keeps the parent's dense view")
+    for sh, (t0_, _t1) in zip(sidx.store.shards, sidx.store.tile_bounds):
+        view = sh.densify()
+        check(view.data_ptr() == tidx.columns[:, t0_ * sh.tile_words:].data_ptr()
+              and view.stride(0) == nw, "a shard's dense view is a strided view of the parent's")
+    report["slice"] = {"n_shards": SHARDS, "seconds": slice_s, "classified_columns": 0,
+                       "tile_bounds": [list(b) for b in sidx.store.tile_bounds]}
+
+    # 2. per-shard plans; every result against the unsharded index
+    runs = []
+    for name, q in queries.items():
+        plan = sidx.plan(q)
+        zero_counts()
+        t0 = time.perf_counter()
+        res = sidx.execute(q)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        info = dict(sidx.last_info)
+        counts = read_counts("sharded")
+        got = res.gather()
+        bad = mismatches(got, want[name])
+        check(bad == 0, f"sharded {name}: {bad} words differ from the unsharded index")
+        check(counts["tiled_block"] <= plan.backends.count("tiled_fused"),
+              f"sharded {name}: at most one K2 launch a tiled shard, {counts}")
+        runs.append({"query": name, "backends": list(plan.backends), "mode": info["mode"],
+                     "first_call_s": first_s, "launch_counts": counts,
+                     "to_result_ms": to_result_ms(lambda q=q: sidx.execute(q)),
+                     "unsharded_to_result_ms": to_result_ms(lambda q=q: tidx.execute(q)),
+                     "words_touched": info["words_touched"],
+                     "decode_words": info.get("decode_words"), "mismatched_words": bad})
+    zero_counts()
+    t0 = time.perf_counter()
+    got_many = sidx.execute_many(many)
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t0
+    many_counts = read_counts("sharded")
+    for j, (g, w) in enumerate(zip(got_many, want_many)):
+        bad = mismatches(g.gather(), w)
+        check(bad == 0, f"sharded execute_many[{j}]: {bad} words differ")
+    report["queries"] = runs
+    # where a cached sharded query's host time goes (8 host-sequenced shards)
+    report["host_profile"] = host_profile(lambda: sidx.execute(queries["interval_2_10"]))
+    report["execute_many"] = {"k": len(many), "backends": list(sidx.last_info["backends"]),
+                              "first_call_s": many_s, "launch_counts": many_counts,
+                              "to_result_ms": to_result_ms(lambda: sidx.execute_many(many))}
+
+    # 3. a heterogeneous plan: at 16 shards the last one is the dense tail
+    s16 = tidx.shard(n_shards=SHARDS_HETERO)
+    hetero = None
+    for members in (names[:8], names[:4], names[2:8], names[:2]):
+        q = Threshold(3, over=[Col(m) for m in members]) if len(members) > 2 else \
+            Threshold(2, over=[Col(m) for m in members])
+        plan = s16.plan(q)
+        if len(plan.distinct) >= 2 and "tiled_fused" in plan.distinct:
+            hetero = (members, q, plan)
+            break
+    check(hetero is not None, "a column set of the dense tail that plans two backends")
+    members, q, plan = hetero
+    zero_counts()
+    res = s16.execute(q)
+    hcounts = read_counts("sharded")
+    bad = mismatches(res.gather(), tidx.execute(q))
+    check(bad == 0, f"heterogeneous plan: {bad} words differ")
+    report["heterogeneous"] = {"n_shards": SHARDS_HETERO, "members": list(members), "t": q.t,
+                               "backends": list(plan.backends), "distinct": list(plan.distinct),
+                               "launch_counts": hcounts, "mismatched_words": bad,
+                               "to_result_ms": to_result_ms(lambda: s16.execute(q))}
+    del s16, res
+
+    # 4. composition without a gather
+    hot_q = Threshold(4)
+    q2 = Col("hot") & Interval(2, 10, over=[Col(m) for m in names])
+    sidx2 = sidx.add_column("hot", sidx.execute(hot_q))
+    got = sidx2.execute(q2).gather()
+    idx2 = tidx.add_column("hot", tidx.execute(hot_q))
+    bad_add = mismatches(got, idx2.execute(q2))
+    check(bad_add == 0, f"add_column of a sharded result: {bad_add} words differ")
+    del sidx2, idx2, got
+    flipped = ~tidx.columns[0]
+    sidx3 = sidx.replace_column(names[0], sidx.store.split(flipped))
+    bad_stale = mismatches(sidx.column(names[0]), tidx.columns[0])
+    bad_new = mismatches(sidx3.column(names[0]), flipped)
+    check(bad_stale == 0 and bad_new == 0,
+          f"replace_column: stale {bad_stale}, replaced {bad_new} words differ")
+    del sidx3, flipped
+    back = BitmapIndex.from_sharded(sidx)
+    bad_back = mismatches(back.columns, tidx.columns)
+    check(bad_back == 0 and np.array_equal(back.store.classes_word, tidx.store.classes_word),
+          f"from_sharded: {bad_back} words differ")
+    del back
+    report["composition"] = {"add_column_mismatched_words": bad_add,
+                             "replace_column_stale_mismatched_words": bad_stale,
+                             "from_sharded_mismatched_words": bad_back}
+
+    # 5. the shard-map path: one K1 launch a piece of the word axis
+    smap = []
+    for n_shards in (SHARDS, SHARDS_RAGGED):
+        sm = tidx.shard(n_shards=n_shards, devices=[dev] * n_shards)
+        pieces = sm.store.spmd_pieces(sm.devices)
+        w = pieces[0].shape[1]
+        views = sum(p.data_ptr() == tidx.columns[:, d * w:].data_ptr() for d, p in enumerate(pieces))
+        check(views >= n_shards - (n_shards * w != nw), f"{n_shards} pieces: {views} are views")
+        for name in ("interval_2_10", "composite"):
+            q = queries[name]
+            zero_counts()
+            res = sm.execute(q, backend="fused")
+            torch.cuda.synchronize()
+            counts = read_counts("sharded")
+            check(sm.last_info["mode"] == "shard_map", f"{name}: mode {sm.last_info['mode']}")
+            check(counts["circuit_eval"] == n_shards and counts["tiled_block"] == 0,
+                  f"{name} at {n_shards} shards: one K1 launch a piece, {counts}")
+            got = res.gather()
+            bad = mismatches(got, tidx.execute(q, backend="fused"))
+            circ = circuit_for((q,), n, names)
+            d = 1  # a piece that starts off a 16-byte boundary when w is odd
+            plain = run_circuit_plain(pieces[d], circ)
+            bad_plain = mismatches(got[d * w:(d + 1) * w], plain)
+            check(bad == 0 and bad_plain == 0,
+                  f"{name} at {n_shards} shards: {bad} words differ from K1, "
+                  f"{bad_plain} from the plain version on piece {d}")
+            k1 = cuda_ms(lambda q=q: tidx.execute(q, backend="fused"), reps=10)
+            spmd = cuda_ms(lambda q=q, sm=sm: sm.execute(q, backend="fused"), reps=10)
+            n_in = len(circ.support())
+            bytes_ms = (n_in + 1) * nw * 4 / PEAK_BYTES_PER_S * 1e3
+            ops_ms = len(circ.ops) * nw / PEAK_ALU_OPS_PER_S * 1e3
+            smap.append({
+                "query": name, "n_shards": n_shards, "piece_words": w,
+                "padded": n_shards * w != nw, "piece_views": views,
+                "unaligned_pieces": sum((d * w * 4) % 16 != 0 for d in range(n_shards)),
+                "launch_counts": counts, "mismatched_words": bad,
+                "plain_piece_mismatched_words": bad_plain,
+                "ms_median": statistics.median(spmd),
+                "unsharded_k1_ms_median": statistics.median(k1),
+                "to_result_ms": to_result_ms(lambda q=q, sm=sm: sm.execute(q, backend="fused")),
+                "unsharded_k1_to_result_ms": to_result_ms(
+                    lambda q=q: tidx.execute(q, backend="fused")),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+        del sm, pieces, res, got
+    report["shard_map"] = smap
+
+    with tempfile.TemporaryDirectory(prefix="bmshards-") as tmp:
+        # 6. sharded snapshot directories
+        d = os.path.join(tmp, "sharded")
+        t0 = time.perf_counter()
+        meta = save_sharded(sidx, d)
+        save_s = time.perf_counter() - t0
+        files = sorted(os.listdir(d))
+        sizes = {f: os.path.getsize(os.path.join(d, f)) for f in files}
+        k = SHARDS // 2
+        t0 = time.perf_counter()
+        store_k, bounds_k = load_shard(d, k, device=dev)
+        load_shard_s = time.perf_counter() - t0
+        check(tuple(bounds_k) == sidx.store.tile_bounds[k], f"shard {k}: bounds {bounds_k}")
+        bad_k = mismatches(store_k.densify(), sidx.store.shards[k].densify())
+        check(bad_k == 0, f"load_shard({k}): {bad_k} words differ")
+        del store_k
+        t0 = time.perf_counter()
+        loaded = load_sharded(d, device=dev, to_device=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        zero_counts()
+        for name, q in queries.items():
+            bad = mismatches(loaded.execute(q).gather(), want[name])
+            check(bad == 0, f"loaded sharded {name}: {bad} words differ")
+        loaded_counts = read_counts("sharded")
+        again = os.path.join(tmp, "again")
+        save_sharded(loaded, again)
+        digests = {f: sha256_of(os.path.join(d, f)) for f in files}
+        check(sorted(os.listdir(again)) == files
+              and all(sha256_of(os.path.join(again, f)) == h for f, h in digests.items()),
+              "a loaded sharded index re-saves to other bytes")
+        del loaded
+        report["persist"] = {"save_s": save_s, "load_shard_s": load_shard_s,
+                             "load_sharded_to_device_s": load_s, "n_shards": meta["n_shards"],
+                             "bytes": sum(sizes.values()), "files": len(files),
+                             "largest_file_bytes": max(sizes.values()),
+                             "sha256_equal_after_resave": True,
+                             "launch_counts": loaded_counts}
+
+        # 7. streaming over a 4-shard base, held against a dense copy
+        report["stream"] = sharded_stream_run(tidx, queries["composite"],
+                                              os.path.join(tmp, "durable"), seed)
+    del sidx
+    report["masks"] = masks_run(dev, seed)
+    emit("sharded", **report)
+
+
+def sharded_stream_run(tidx, composite, durable_dir: str, seed: int) -> dict:
+    """``StreamingIndex`` over ``tidx`` in 4 row shards: one view, a seeded
+    batch (some updates within 2 bits of every shard boundary) and appended
+    rows; the view and two queries against K1 over a dense copy the updates
+    were replayed on with torch ops, before and after per-shard compaction;
+    then a checkpoint (a sharded directory) and ``recover``."""
+    from repro_torch.core.bitmaps import n_words_for, packed_tail_mask
+    from repro_torch.kernels.threshold_ssum import run_circuit_cached
+    from repro_torch.query import Interval, Threshold
+    from repro_torch.query.index import circuit_for
+    from repro_torch.stream import CompactionPolicy, StreamingIndex
+
+    dev = tidx.device
+    data = tidx.names
+    n = len(data)
+    rng = np.random.default_rng(seed + 17)
+    out = {"n_shards": SHARDS_STREAM}
+    t0 = time.perf_counter()
+    s = StreamingIndex(tidx.shard(n_shards=SHARDS_STREAM), policy=CompactionPolicy(auto=False))
+    view_q = Threshold(2, over=data[48:64])
+    zero_counts()
+    s.materialize("v_sharded", view_q)
+    torch.cuda.synchronize()
+    out["materialize_s"] = time.perf_counter() - t0
+    out["materialize_launch_counts"] = read_counts("sharded")
+
+    r0 = s.r
+    bounds = [w * 32 for w in s.index().store.word_offsets[1:]]
+    cols = rng.integers(0, n, SHARD_STREAM_UPDATES)
+    pos = rng.integers(0, r0, SHARD_STREAM_UPDATES)
+    near = np.repeat(np.asarray(bounds, np.int64), SHARD_STREAM_STRADDLE)
+    pos[: near.size] = near + rng.integers(-2, 2, near.size)  # bits b-2 .. b+1
+    on = rng.random(SHARD_STREAM_UPDATES) < 0.5
+    last = {}  # one write a (column, position): sets apply before clears
+    for i, (c, p) in enumerate(zip(cols.tolist(), pos.tolist())):
+        last[(c, p)] = i
+    sel = np.asarray(sorted(last.values()))
+    cols, pos, on = cols[sel], pos[sel], on[sel]
+    dense = tidx.columns.clone()
+    zero_counts()
+    t0 = time.perf_counter()
+    s.update(**as_update(data, cols, pos, on))
+    out["apply_ms"] = (time.perf_counter() - t0) * 1e3
+    replay_on_dense(dense, cols, pos, on)
+    straddled = sum(bool(((pos >= b - 2) & (pos < b)).any() and ((pos >= b) & (pos < b + 2)).any())
+                    for b in bounds)
+    app = rng.random((n, STREAM_APPEND_ROWS)) < STREAM_APPEND_DENSITY
+    start, stop = s.append_rows(app)
+    check((start, stop) == (r0, r0 + STREAM_APPEND_ROWS), f"append_rows range {(start, stop)}")
+    r1 = s.r
+    nw1 = n_words_for(r1)
+    dense = torch.nn.functional.pad(dense, (0, nw1 - dense.shape[1]))
+    arow, apos = np.nonzero(app)
+    replay_on_dense(dense, arow.astype(np.int64), r0 + apos.astype(np.int64),
+                    np.ones(arow.size, bool))
+    mask = packed_tail_mask(r1, nw1, dev)
+
+    def k1_dense(q):
+        got = run_circuit_cached(dense, circuit_for((q,), n, data))
+        return got if mask is None else got & mask
+
+    check_queries = {"interval_2_10": Interval(2, 10, over=data), "composite": composite}
+    t0 = time.perf_counter()
+    s.refresh()
+    torch.cuda.synchronize()
+    out["view_refresh"] = {"ms": (time.perf_counter() - t0) * 1e3, **s.view_info("v_sharded")}
+    bad = {"view": mismatches(s.column("v_sharded"), k1_dense(view_q))}
+    for name, q in check_queries.items():
+        bad[name] = mismatches(s.execute(q).gather(), k1_dense(q))
+    out["overlay_launch_counts"] = read_counts("sharded")
+    out["overlay_backends"] = {name: list(s.explain(q).backends) for name, q in check_queries.items()}
+    check(all(v == 0 for v in bad.values()), f"sharded overlay vs the dense copy: {bad}")
+    check(straddled == len(bounds), f"{straddled} of {len(bounds)} boundaries straddled")
+    zero_counts()
+    t0 = time.perf_counter()
+    check(s.compact(), "compact() merged the deltas")
+    out["compact_s"] = time.perf_counter() - t0
+    bad_c = {"view": mismatches(s.column("v_sharded"), k1_dense(view_q))}
+    for name, q in check_queries.items():
+        bad_c[name] = mismatches(s.execute(q).gather(), k1_dense(q))
+    out["compacted_launch_counts"] = read_counts("sharded")
+    check(all(v == 0 for v in bad_c.values()), f"compacted sharded index vs the dense copy: {bad_c}")
+
+    t0 = time.perf_counter()
+    s.attach_durable(durable_dir)  # writes a sharded checkpoint
+    out["checkpoint_s"] = time.perf_counter() - t0
+    check(os.path.exists(os.path.join(durable_dir, "sharded.json")), "a sharded checkpoint")
+    more = rng.integers(0, r1, 512)
+    s.update(sets={data[1]: more})
+    t0 = time.perf_counter()
+    rec = StreamingIndex.recover(durable_dir, device=dev)
+    out["recover_s"] = time.perf_counter() - t0
+    bad_r = {name: mismatches(rec.execute(q).gather(), s.execute(q).gather())
+             for name, q in check_queries.items()}
+    bad_r["view"] = mismatches(rec.column("v_sharded"), s.column("v_sharded"))
+    check(rec.is_sharded and all(v == 0 for v in bad_r.values()),
+          f"recovered sharded index differs: {bad_r}")
+    out.update(updates=int(cols.size), appended_rows=STREAM_APPEND_ROWS,
+               boundaries_straddled=straddled, mismatched_words=bad,
+               compacted_mismatched_words=bad_c, recovered_mismatched_words=bad_r)
+    return out
+
+
+def masks_run(dev, seed: int) -> dict:
+    """``head_vote_mask`` over 64 heads x 2**20 KV positions through K1,
+    against its plain version on a CPU copy and a numpy count oracle; the
+    KV-tile skip list against numpy.  Heads vote densely on a random half of
+    the 2,048-position tiles and rarely elsewhere, so tiles die."""
+    from repro_torch.core.bitmaps import pack
+    from repro_torch.serve.masks import head_vote_mask, kv_tile_skiplist
+
+    rng = np.random.default_rng(seed + 23)
+    n_kv = 2**MASK_KV_LOG2
+    live = rng.random(n_kv // MASK_TILE) < 0.5
+    p = np.where(np.repeat(live, MASK_TILE), 0.3, 0.01)
+    votes_np = rng.random((MASK_HEADS, n_kv)) < p
+    votes = pack(votes_np, dev)
+    zero_counts()
+    kept = head_vote_mask(votes, MASK_T)
+    torch.cuda.synchronize()
+    counts = read_counts("sharded")
+    check(counts["circuit_eval"] == 1, f"head_vote_mask launched K1 once, {counts}")
+    plain = head_vote_mask(votes.cpu(), MASK_T)
+    want_bits = votes_np.sum(0) >= MASK_T
+    bad_plain = mismatches(kept.cpu(), plain)
+    bad_oracle = mismatches(kept.cpu(), pack(want_bits, "cpu"))
+    check(bad_plain == 0 and bad_oracle == 0,
+          f"head_vote_mask: {bad_plain} words differ from the plain version, {bad_oracle} from numpy")
+    keep, info = kv_tile_skiplist(kept, n_kv, tile_positions=MASK_TILE)
+    want_keep = np.nonzero(want_bits.reshape(-1, MASK_TILE).any(1))[0]
+    check(np.array_equal(keep, want_keep), "the KV-tile skip list differs from numpy")
+    return {"heads": MASK_HEADS, "kv_positions": n_kv, "t": MASK_T, "tile_positions": MASK_TILE,
+            "launch_counts": counts, "mismatched_words": bad_plain,
+            "oracle_mismatched_words": bad_oracle, "kept_positions": int(want_bits.sum()),
+            "skiplist": info, "to_result_ms": to_result_ms(lambda: head_vote_mask(votes, MASK_T))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-log2", type=int, default=27,
@@ -2717,6 +3148,7 @@ def main() -> int:
     thead = timed("tiled_timing", phase_tiled_timing, tidx, tqueries, tmany, args.reps)
     timed("backends_tiled", phase_backends_tiled, tidx)
     timed("obs", phase_obs, tidx)
+    timed("sharded", phase_sharded, tidx, tqueries, tmany, smi, args.seed)
     stream, dense, squeries = timed("stream", phase_stream, tidx,
                                       tqueries["composite"], smi, args.seed)
     del tidx

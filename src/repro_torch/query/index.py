@@ -32,7 +32,8 @@ their encoded programs are cached by circuit *structure* underneath
 (``kernels.threshold_ssum``).  Data never enters either key, so every
 index with the same schema shares both layers.  :meth:`save` /
 :meth:`load` write and read the reference's ``.bmsnap`` snapshots
-(:mod:`repro_torch.persist`); sharding of the reference is not ported yet.
+(:mod:`repro_torch.persist`); :meth:`shard` partitions the row space
+(:mod:`repro_torch.dist`).
 
 **Observability**: with :mod:`repro_torch.obs` enabled, ``execute`` /
 ``execute_many`` emit the reference's span trees (plan / compile /
@@ -393,6 +394,34 @@ class BitmapIndex:
         return BitmapIndex(
             names=self._names, _store=self.store.replace(self._slot[name], packed)
         )
+
+    # -- sharding ----------------------------------------------------------
+    def shard(self, n_shards: int | None = None, devices=None):
+        """Partition the row space: a
+        :class:`repro_torch.dist.query.ShardedBitmapIndex` whose shards are
+        contiguous tile ranges, each with its own tile classes, container
+        packs and member statistics (sliced, not reclassified; dense views
+        are strided views of this index's).  ``execute`` there compiles ONE
+        circuit and plans PER SHARD.  With ``devices=None`` the shards run
+        host-sequenced (still per-shard-planned); with ``devices`` (one
+        torch device per shard, entries may repeat; ``n_shards`` defaults
+        to their number), homogeneous dense plans run on the shard-map
+        path, one circuit-kernel launch per piece of the word axis."""
+        from repro_torch.dist.query import ShardedBitmapIndex
+
+        return ShardedBitmapIndex.from_index(self, devices=devices, n_shards=n_shards)
+
+    @classmethod
+    def from_sharded(cls, sharded) -> "BitmapIndex":
+        """Gather a :class:`repro_torch.dist.query.ShardedBitmapIndex` back
+        into a single-device index (the explicit, paid-for gather -- query
+        results never need it, they feed back shard-wise via
+        ``add_column``).  The shards' tile classifications are stitched,
+        not recomputed."""
+        store = TileStore.concat_tiles(
+            sharded.store.shards, n_words=sharded.n_words, r=sharded.r
+        )
+        return cls(names=sharded.names, _store=store)
 
     # -- persistence -------------------------------------------------------
     def save(self, path) -> dict:

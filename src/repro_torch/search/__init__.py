@@ -3,8 +3,7 @@
 The port of the reference's ``repro.search``, with the reference's exports.
 Every index lives on ``device`` (default: the CUDA card); tokenizing,
 candidate verification and the list views stay on the host, as in the
-reference.  Sharded similarity indexes wait for ``ROADMAP.md`` Queue 1
-item 10.
+reference.  ``n_shards`` row-shards the index (``repro_torch.dist``).
 
 The paper's threshold queries ARE T-occurrence queries -- the engine of
 approximate string/set similarity search -- and its symmetric-function

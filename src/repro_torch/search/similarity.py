@@ -2,8 +2,8 @@
 
 The port of the reference's ``repro.search.similarity``: the same columns,
 bits, thresholds and answers, with the index on ``device`` (default: the
-CUDA card) and the candidate bitmaps read back as host numpy ``uint32``.
-Sharded indexes (``n_shards``) wait for ``ROADMAP.md`` Queue 1 item 10.
+CUDA card) and the candidate bitmaps read back as host numpy ``uint32``
+(a sharded index's results are gathered first).
 
 The paper frames threshold queries as T-occurrence queries -- the core of
 approximate string/set similarity search.  :class:`SimilarityIndex` makes
@@ -28,8 +28,8 @@ over a string corpus, with
   vocabulary via ``add_data_column`` -- no rebuild.
 
 Every execution goes through the planner (or an explicit ``backend=``
-override), so candidate generation runs on any ``ALGORITHMS`` backend
-bit-identically.
+override), so candidate generation runs on any ``ALGORITHMS`` backend,
+sharded or not, bit-identically.
 """
 from __future__ import annotations
 
@@ -39,12 +39,12 @@ import time
 import numpy as np
 
 from repro_torch.device import to_numpy_u32
+from repro_torch.dist.query import ShardedResult
 from repro_torch.obs import REGISTRY as _OBS
 from repro_torch.obs import trace as _trace
 from repro_torch.query.expr import Col, Interval, Threshold
 from repro_torch.query.index import BitmapIndex
 from repro_torch.stream import StreamingIndex
-from repro_torch.stream.index import _SHARDED
 
 from .tokenize import MinHashParams, band_buckets, minhash_signature, qgrams, sk_threshold
 
@@ -139,6 +139,14 @@ class TopK:
 # ---------------------------------------------------------------------------
 
 
+def _host_bitmap(res) -> np.ndarray:
+    """Normalise an execute() result (a tensor or a ShardedResult) to a
+    host uint32 row."""
+    if isinstance(res, ShardedResult):
+        res = res.gather()
+    return to_numpy_u32(res)
+
+
 def _positions(bitmap: np.ndarray) -> np.ndarray:
     bits = np.unpackbits(bitmap.view(np.uint8), bitorder="little")
     return np.nonzero(bits)[0]
@@ -154,8 +162,6 @@ class SimilarityIndex:
     def __init__(self, strings, *, q: int = 2, lengths: bool = True,
                  minhash: MinHashParams | None = None, tile_words: int = 8,
                  n_shards: int | None = None, device=None):
-        if n_shards is not None:
-            raise NotImplementedError(_SHARDED)
         self.q = int(q)
         self.lengths = bool(lengths)
         self.minhash = minhash
@@ -169,6 +175,8 @@ class SimilarityIndex:
         words = _pack_rows(rows, names)
         base = BitmapIndex(words, names, r=len(rows), tile_words=tile_words,
                            device=device)
+        if n_shards is not None:
+            base = base.shard(n_shards=n_shards)
         t2 = time.perf_counter()
         self._stream = StreamingIndex(base)  # classifies the base's tiles
         #: host seconds of the three build steps: ``tokenize`` (the column
@@ -201,7 +209,7 @@ class SimilarityIndex:
 
     @property
     def index(self):
-        """The queryable BitmapIndex snapshot, deltas overlaid."""
+        """The queryable (Sharded)BitmapIndex snapshot, deltas overlaid."""
         return self._stream.index()
 
     @property
@@ -229,7 +237,7 @@ class SimilarityIndex:
         integer-list view the host competitors (``core.listalgos``) merge."""
         idx = self.index
         return [
-            _positions(to_numpy_u32(idx.column(nm)))
+            _positions(_host_bitmap(idx.column(nm)))
             for nm in self._present_grams(s)
         ]
 
@@ -282,7 +290,7 @@ class SimilarityIndex:
                 res = self.index.execute(
                     Threshold(t, over=[Col(g) for g in grams]), backend=backend
                 )
-                bm = to_numpy_u32(res)[: self._n_words()]
+                bm = _host_bitmap(res)[: self._n_words()]
                 vacuous = False
             if length_filter and self.lengths:
                 bm = bm & self._length_filter(len(s), k, backend=backend)
@@ -307,7 +315,7 @@ class SimilarityIndex:
         res = self.index.execute(
             Threshold(1, over=[Col(c) for c in cols]), backend=backend
         )
-        return to_numpy_u32(res)[: self._n_words()]
+        return _host_bitmap(res)[: self._n_words()]
 
     def minhash_candidates(self, s: str, *, min_bands: int = 1,
                            backend: str | None = None) -> Candidates:
@@ -327,7 +335,7 @@ class SimilarityIndex:
             res = self.index.execute(
                 Threshold(min_bands, over=[Col(c) for c in cols]), backend=backend
             )
-            bm = to_numpy_u32(res)[: self._n_words()]
+            bm = _host_bitmap(res)[: self._n_words()]
         ids = _positions(bm)
         _CANDIDATES.inc(int(ids.size), family="minhash")
         return Candidates(
@@ -473,7 +481,7 @@ class SimilarityIndex:
                 if hi_next >= n_present
                 else Interval(lo, hi_next, over=gram_cols)
             )
-            band = to_numpy_u32(idx.execute(q, backend=backend))[: self._n_words()]
+            band = _host_bitmap(idx.execute(q, backend=backend))[: self._n_words()]
             return band, seen | band
         # the degenerate reductions only express theta(1) / theta(N); other
         # relaxation steps fall back to the planner's choice
@@ -482,7 +490,7 @@ class SimilarityIndex:
             backend == "wide_and" and t != n_present
         ):
             use = None
-        theta = to_numpy_u32(
+        theta = _host_bitmap(
             idx.execute(Threshold(t, over=gram_cols), backend=use)
         )[: self._n_words()]
         return theta & ~seen, theta

@@ -30,9 +30,9 @@ per-column and member-subset statistics, ``append`` / ``replace`` /
 tile-skipping executor (``storage.tiled``) reads: the store-wide packs and
 their device mirrors (``packs`` / ``device_packs`` / ``dirty``) and the
 cell and event gathers, ``block_stats`` (the 3-class view that
-``rbmrg_block`` reads), the snapshot constructor ``from_arrays`` and the
-streaming compaction path ``apply_tile_updates``.  Tile-range slicing
-(``slice_tiles`` / ``concat_tiles``) comes with sharding (see ROADMAP.md).
+``rbmrg_block`` reads), the snapshot constructor ``from_arrays``, the
+streaming compaction path ``apply_tile_updates`` and the row-shard
+constructors ``slice_tiles`` / ``concat_tiles`` (``repro_torch.dist``).
 
 Stores are immutable: ``append`` / ``replace`` return a new ``TileStore``
 that shares nothing mutable with the old one, so stale references keep
@@ -216,6 +216,54 @@ def _classify_tile_words(words: np.ndarray) -> np.ndarray:
     return np.where(
         all_one, TILE_ONE, np.where(words.any(axis=1), TILE_DIRTY, TILE_ZERO)
     ).astype(np.uint8)
+
+
+def _slice_column(c: _Column, t0: int, t1: int, tile_words: int) -> _Column:
+    """Tile-range slice of one column's classes/kinds/packs -- nothing is
+    reclassified, offsets are rebased."""
+    classes = np.ascontiguousarray(c.classes[t0:t1])
+    kinds = np.ascontiguousarray(c.kinds[t0:t1])
+    d0 = int((c.kinds[:t0] == CONT_DENSE).sum())
+    dn = int((kinds == CONT_DENSE).sum())
+    dense = np.ascontiguousarray(c.dense[d0 : d0 + dn])
+    s0 = int((c.kinds[:t0] == CONT_SPARSE).sum())
+    sn = int((kinds == CONT_SPARSE).sum())
+    soff = c.soff[s0 : s0 + sn + 1] - c.soff[s0]
+    spos = np.ascontiguousarray(c.spos[c.soff[s0] : c.soff[s0 + sn]])
+    r0 = int((c.kinds[:t0] == CONT_RUN).sum())
+    rn = int((kinds == CONT_RUN).sum())
+    roff = c.roff[r0 : r0 + rn + 1] - c.roff[r0]
+    runs = np.ascontiguousarray(c.runs[c.roff[r0] : c.roff[r0 + rn]])
+    card = _popcount_words(dense) if dense.size else 0
+    card += int((classes == TILE_ONE).sum()) * tile_words * 32
+    card += len(spos)
+    if len(runs):
+        card += int(
+            (runs[:, 1].astype(np.int64) - runs[:, 0].astype(np.int64)).sum()
+        )
+    return _Column(classes=classes, kinds=kinds, dense=dense, spos=spos,
+                   soff=soff, runs=runs, roff=roff, cardinality=card)
+
+
+def _concat_columns(parts: list) -> _Column:
+    """Inverse of :func:`_slice_column`: stitch tile-range columns."""
+    soffs, shift = [parts[0].soff], parts[0].soff[-1]
+    roffs, rshift = [parts[0].roff], parts[0].roff[-1]
+    for p in parts[1:]:
+        soffs.append(p.soff[1:] + shift)
+        shift += p.soff[-1]
+        roffs.append(p.roff[1:] + rshift)
+        rshift += p.roff[-1]
+    return _Column(
+        classes=np.concatenate([p.classes for p in parts]),
+        kinds=np.concatenate([p.kinds for p in parts]),
+        dense=np.concatenate([p.dense for p in parts]),
+        spos=np.concatenate([p.spos for p in parts]),
+        soff=np.concatenate(soffs),
+        runs=np.concatenate([p.runs for p in parts]),
+        roff=np.concatenate(roffs),
+        cardinality=sum(p.cardinality for p in parts),
+    )
 
 
 def _tile_cardinalities(c: _Column, tiles, tile_words: int) -> np.ndarray:
@@ -876,6 +924,57 @@ class TileStore:
         return TileStore.from_packed(self.densify(), tile_words=tile_words,
                                      r=self.r, containers=self.containers,
                                      device=self.device)
+
+    def slice_tiles(self, t0: int, t1: int) -> "TileStore":
+        """New store over the tile range [t0, t1) -- the row-space shard
+        constructor.  Classes, kinds and container packs are sliced, never
+        recomputed or reclassified, so carving S shards costs
+        O(N * n_tiles) host bookkeeping; each shard carries its own offset
+        tables, member statistics and device pack mirrors (built lazily
+        like any other store's).  A dense view on the device is sliced as
+        a strided view of the parent's (no copy); the shard's device is
+        the parent's."""
+        t0, t1 = int(t0), int(t1)
+        if not 0 <= t0 < t1 <= self.n_tiles:
+            raise ValueError(f"tile range [{t0}, {t1}) outside [0, {self.n_tiles})")
+        tw = self.tile_words
+        w0 = t0 * tw
+        nw_local = min(self.n_words, t1 * tw) - w0
+        r_local = min(self.r, t1 * tw * 32) - w0 * 32
+        if r_local <= 0:
+            raise ValueError(f"tile range [{t0}, {t1}) holds no bits of the universe")
+        cols = [_slice_column(c, t0, t1, tw) for c in self._cols]
+        dense = None
+        if self._dense is not None:
+            dense = self._dense[:, w0 : w0 + nw_local]
+        return TileStore(cols, tile_words=tw, n_words=nw_local, r=r_local,
+                         dense=dense, containers=self.containers, device=self.device)
+
+    @classmethod
+    def concat_tiles(cls, stores, *, n_words: int | None = None,
+                     r: int | None = None) -> "TileStore":
+        """Inverse of :meth:`slice_tiles`: stitch tile-range stores back
+        into one on the first store's device.  Classes and container packs
+        are concatenated per column -- nothing is reclassified, the shards
+        already hold the answer."""
+        stores = list(stores)
+        first = stores[0]
+        tw = first.tile_words
+        if any(s.tile_words != tw or s.n != first.n for s in stores):
+            raise ValueError("stores must share tile_words and column count")
+        if n_words is None:
+            n_words = sum(s.n_words for s in stores)
+        if r is None:
+            r = sum(s.r for s in stores)
+        cols = [
+            _concat_columns([s._cols[i] for s in stores])
+            for i in range(first.n)
+        ]
+        dense = None
+        if all(s._dense is not None for s in stores):
+            dense = torch.cat([s._dense.to(first.device) for s in stores], dim=1)
+        return cls(cols, tile_words=tw, n_words=n_words, r=r, dense=dense,
+                   containers=first.containers, device=first.device)
 
     # -- accessors ---------------------------------------------------------
     @property

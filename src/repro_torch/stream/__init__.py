@@ -15,7 +15,8 @@ query results fresh incrementally:
     through the circuit kernel only over mutated tiles, and the durable
     checkpoint / WAL / recover path of :mod:`repro_torch.persist`.
 
-Sharded bases are not ported yet (``ROADMAP.md`` Queue 1 item 10).
+A :class:`~repro_torch.dist.query.ShardedBitmapIndex` base keeps one delta
+per row shard; refresh, compaction and checkpoints run per shard.
 """
 
 from .delta import DeltaStore

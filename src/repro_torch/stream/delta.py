@@ -15,9 +15,8 @@ bits land in the base store's partial final tile and/or brand-new tiles,
 which are just more buffered tiles -- tiles past the base store's range
 read as all-zero, exactly what an un-appended column holds there.
 
-A ``DeltaStore`` is deliberately shard-local, as in the reference (where
-the streaming engine keeps one per row shard); the port's streaming engine
-is unsharded so far and keeps one.  Everything here is host numpy over
+A ``DeltaStore`` is deliberately shard-local, as in the reference: the
+streaming engine keeps one per row shard of a sharded base.  Everything here is host numpy over
 ``uint32`` words: the device work of a mutation happens when a query or a
 view refresh reads the overlay.
 """

@@ -5,11 +5,11 @@ The paper's headline property -- a threshold/symmetric result *is again a
 bitmap which can be further processed within a bitmap index* -- only pays
 off in a serving system if the index absorbs writes without rebuilds.
 ``StreamingIndex`` wraps an immutable :class:`~repro_torch.query.BitmapIndex`
-and adds:
+(or a :class:`~repro_torch.dist.query.ShardedBitmapIndex`) and adds:
 
   * **mutations**: ``set_bits`` / ``clear_bits`` / batched ``update`` /
-    row-space ``append_rows`` accumulate in a
-    :class:`~repro_torch.stream.delta.DeltaStore` buffer (host numpy) --
+    row-space ``append_rows`` accumulate in per-shard
+    :class:`~repro_torch.stream.delta.DeltaStore` buffers (host numpy) --
     the base store is never touched, so every stale reference keeps
     working;
   * **overlay reads**: queries run against an
@@ -35,8 +35,8 @@ and adds:
     every mutation batch to a write-ahead log before applying it;
     :meth:`checkpoint` writes a snapshot, :meth:`recover` replays.
 
-Sharded bases (``ShardedBitmapIndex`` in the reference) are not ported
-yet: the constructor refuses anything but a ``BitmapIndex``.
+Under a sharded base, every mutation routes to the owning row shard's
+delta, refresh and compaction run per shard, and nothing ever gathers.
 """
 from __future__ import annotations
 
@@ -54,8 +54,6 @@ from .delta import DeltaStore, base_tile_batch
 from .overlay import OverlayStore
 
 __all__ = ["CompactionPolicy", "MaterializedView", "StreamingIndex"]
-
-_SHARDED = "sharded streaming: ROADMAP Queue 1 item 10"
 
 # Streaming-path accounting on the process-wide registry (no-ops until
 # ``repro_torch.obs.enable()``).  Mutation batches, view refresh work and
@@ -119,18 +117,19 @@ class MaterializedView:
     kept: tuple = ()
     residual: object = None  # None when the query folded to a constant
     const: int | None = None  # that constant, when it did
-    pending: set = dataclasses.field(default_factory=set)  # tile ids
+    pending: set = dataclasses.field(default_factory=set)  # global tile ids
     last_refresh_info: dict | None = None
 
 
 class StreamingIndex:
-    """An updatable view over a BitmapIndex plus a delta buffer."""
+    """An updatable view over a (Sharded)BitmapIndex plus delta buffers."""
 
     def __init__(self, index, *, policy: CompactionPolicy | None = None,
                  durable_dir=None):
-        if not isinstance(index, BitmapIndex):
-            raise NotImplementedError(_SHARDED)
+        from repro_torch.dist.query import ShardedBitmapIndex
+
         self.policy = policy or CompactionPolicy()
+        self._sharded = isinstance(index, ShardedBitmapIndex)
         self._base = index
         self._names = tuple(index.names)
         self._slot = {name: i for i, name in enumerate(self._names)}
@@ -199,7 +198,10 @@ class StreamingIndex:
         )
 
     def _reset_deltas(self) -> None:
-        self._delta = DeltaStore(self._base.store)
+        if self._sharded:
+            self._deltas = [DeltaStore(s) for s in self._base.store.shards]
+        else:
+            self._deltas = [DeltaStore(self._base.store)]
 
     # -- accessors ---------------------------------------------------------
     @property
@@ -212,7 +214,7 @@ class StreamingIndex:
 
     @property
     def is_sharded(self) -> bool:
-        return False
+        return self._sharded
 
     @property
     def device(self):
@@ -220,15 +222,17 @@ class StreamingIndex:
 
     @property
     def tile_words(self) -> int:
-        return self._delta.tile_words
+        return self._deltas[0].tile_words
 
     @property
     def r(self) -> int:
-        return self._delta.r
+        if self._sharded:
+            return self._bit_offsets()[-1] + self._deltas[-1].r
+        return self._deltas[0].r
 
     @property
     def delta_words(self) -> int:
-        return self._delta.delta_words
+        return sum(d.delta_words for d in self._deltas)
 
     @property
     def views(self) -> tuple:
@@ -244,11 +248,36 @@ class StreamingIndex:
 
     def delta_stats(self) -> dict:
         return {
-            "patched_tiles": self._delta.patched_tiles,
+            "patched_tiles": sum(d.patched_tiles for d in self._deltas),
             "delta_words": self.delta_words,
             "compactions": self.compactions,
             "pending_view_tiles": sum(len(v.pending) for v in self._views.values()),
         }
+
+    # -- shard routing -----------------------------------------------------
+    def _bit_offsets(self) -> list:
+        if not self._sharded:
+            return [0]
+        return [w * 32 for w in self._base.store.word_offsets]
+
+    def _tile_offsets(self) -> list:
+        """Global tile id of each shard's first tile (growth-aware)."""
+        offs, t0 = [], 0
+        for d in self._deltas:
+            offs.append(t0)
+            t0 += d.n_tiles
+        return offs
+
+    def _route_index(self, pos: np.ndarray) -> list:
+        """[(shard, selector into the batch)] for global bit positions."""
+        if not self._sharded:
+            return [(0, np.arange(pos.size))]
+        offs = np.asarray(self._bit_offsets())
+        shard_of = np.searchsorted(offs, pos, side="right") - 1
+        return [
+            (int(s), np.nonzero(shard_of == s)[0])
+            for s in np.unique(shard_of).tolist()
+        ]
 
     # -- mutations ---------------------------------------------------------
     def _data_slot(self, name: str) -> int:
@@ -269,8 +298,8 @@ class StreamingIndex:
     def update(self, sets: dict | None = None, clears: dict | None = None) -> None:
         """Apply a batch of set/clear mutations as ONE index update (one
         version bump, one auto-compaction check).  The whole batch flattens
-        into a single vectorised ``DeltaStore.apply_batch``; set masks apply
-        before clear masks."""
+        into a single vectorised ``DeltaStore.apply_batch`` per owning shard;
+        set masks apply before clear masks."""
         parts = []  # (slot, positions, on)
         for mapping, on in ((sets, True), (clears, False)):
             for name, positions in (mapping or {}).items():
@@ -290,13 +319,22 @@ class StreamingIndex:
 
     def _apply_update_arrays(self, cols: np.ndarray, pos: np.ndarray,
                              on: np.ndarray) -> None:
-        """Apply one validated (cols, pos, on) batch -- the shared tail of
-        :meth:`update` and WAL replay."""
+        """Route one validated (cols, pos, on) batch to the owning shards
+        -- the shared tail of :meth:`update` and WAL replay."""
         if _OBS.enabled:
             _MUTATIONS.inc(1, kind="update")
             _MUTATED_POSITIONS.inc(int(pos.size))
-        per_col = self._delta.apply_batch(cols, pos, on)
-        touched = {slot: set(tiles) for slot, tiles in per_col.items()}
+        touched: dict[int, set] = {}
+        toffs = self._tile_offsets()
+        boffs = self._bit_offsets()
+        for shard, sel in self._route_index(pos):
+            per_col = self._deltas[shard].apply_batch(
+                cols[sel], pos[sel] - boffs[shard], on[sel]
+            )
+            for slot, tiles in per_col.items():
+                touched.setdefault(slot, set()).update(
+                    toffs[shard] + t for t in tiles
+                )
         if touched:
             self._after_mutation(touched)
 
@@ -305,7 +343,9 @@ class StreamingIndex:
         ``[n_data_columns, k]`` in column-name order (materialized views
         excluded -- their appended bits are computed, not supplied), or a
         ``{name: bits}`` mapping (absent columns default to all-zero).
-        Returns the appended row range ``(start, stop)``."""
+        Under sharding the appended range extends the LAST shard -- no
+        resharding, no gather.  Returns the appended global row range
+        ``(start, stop)``."""
         start = self.r
         data_slots = [
             i for i, nm in enumerate(self._names) if nm not in self._views
@@ -336,13 +376,16 @@ class StreamingIndex:
         if _OBS.enabled:
             _MUTATIONS.inc(1, kind="append")
             _MUTATED_POSITIONS.inc(int(arr.sum()))
-        tiles = set(self._delta.append_rows(arr))
+        toffs = self._tile_offsets()
+        shard = len(self._deltas) - 1
+        tiles = self._deltas[shard].append_rows(arr)
+        gtiles = {toffs[shard] + t for t in tiles}
         # every column's consumers see the appended range change -- and so
         # does EVERY view, support or not: a view whose query folded to a
         # constant (empty circuit support) still owes its constant over the
         # new rows
         self._after_mutation(
-            {slot: set(tiles) for slot in range(self.n)}, appended=tiles
+            {slot: set(gtiles) for slot in range(self.n)}, appended=gtiles
         )
         return (start, start + arr.shape[1])
 
@@ -440,24 +483,37 @@ class StreamingIndex:
             fn(self._version, names)
 
     def _base_working_words(self) -> int:
+        if self._sharded:
+            return sum(s.dirty_words + s.n_words for s in self._base.store.shards)
         return self._base.store.dirty_words + self._base.store.n_words
 
     # -- overlay read path -------------------------------------------------
-    def index(self) -> BitmapIndex:
-        """The queryable BitmapIndex over ``base ⊕ delta``, with every
-        materialized view refreshed.  Cached per mutation version."""
+    def index(self):
+        """The queryable (Sharded)BitmapIndex over ``base ⊕ delta``, with
+        every materialized view refreshed.  Cached per mutation version."""
         self.refresh()
         return self._overlay_index()
 
-    def _overlay_index(self) -> BitmapIndex:
-        if self._delta.empty:
+    def _overlay_index(self):
+        if all(d.empty for d in self._deltas):
             return self._base
         if self._overlay_cache is not None and self._overlay_cache[0] == self._version:
             return self._overlay_cache[1]
-        idx = BitmapIndex(
-            names=self._names,
-            _store=OverlayStore(self._base.store, self._delta),
-        )
+        if self._sharded:
+            from repro_torch.dist.query import ShardedBitmapIndex
+
+            shards = tuple(
+                s if d.empty else OverlayStore(s, d)
+                for s, d in zip(self._base.store.shards, self._deltas)
+            )
+            idx = ShardedBitmapIndex(
+                self._base.store.with_shards(shards), self._names
+            )
+        else:
+            idx = BitmapIndex(
+                names=self._names,
+                _store=OverlayStore(self._base.store, self._deltas[0]),
+            )
         self._overlay_cache = (self._version, idx)
         return idx
 
@@ -469,9 +525,10 @@ class StreamingIndex:
         return self.index().execute_many(queries, **kw)
 
     def explain(self, query):
-        """The plan the next execute would run, computed from the OVERLAID
-        statistics."""
-        return self.index().explain(query)
+        """The plan (unsharded) or per-shard plans (sharded) the next
+        execute would run, computed from the OVERLAID statistics."""
+        idx = self.index()
+        return idx.plan(query) if self._sharded else idx.explain(query)
 
     def column(self, name: str):
         return self.index().column(name)
@@ -510,7 +567,10 @@ class StreamingIndex:
         self.refresh()
         self.compact(force=True)
         res = self._base.execute(q)
-        card = int(cardinality(res))
+        if self._sharded:
+            card = sum(int(cardinality(s)) for s in res.shards)
+        else:
+            card = int(cardinality(res))
         self._base = self._base.add_column(name, res)
         self._names = tuple(self._base.names)
         self._slot = {n: i for i, n in enumerate(self._names)}
@@ -552,11 +612,12 @@ class StreamingIndex:
                 self._refresh_view(view)
         raise RuntimeError("materialized views failed to converge")  # pragma: no cover
 
-    def _gather_support_tiles(self, kept: tuple, tiles: np.ndarray) -> np.ndarray:
+    def _gather_support_tiles(self, shard: int, kept: tuple,
+                              tiles: np.ndarray) -> np.ndarray:
         """Current (base ⊕ delta) words of the support columns restricted to
-        ``tiles`` -- host uint32[s, T, tile_words], one vectorised base pass
-        plus the delta's patched-tile overrides."""
-        d = self._delta
+        one shard's local ``tiles`` -- host uint32[s, T, tile_words], one
+        vectorised base pass plus the delta's patched-tile overrides."""
+        d = self._deltas[shard]
         tw = d.tile_words
         s, T = len(kept), int(tiles.size)
         cc = np.repeat(np.asarray(kept, np.int64), T)
@@ -574,28 +635,32 @@ class StreamingIndex:
 
     def _refresh_view(self, view: MaterializedView) -> None:
         """Re-run the view's support-specialised circuit over ONLY the
-        pending tiles and patch the results into the view column's delta;
-        counts move by per-tile popcount deltas.
+        pending tiles (per owning shard) and patch the results into the
+        view column's delta; counts move by per-tile popcount deltas.
 
-        The gathered ``[s, T * tile_words]`` words go to the index's device
-        in one upload and through ``run_circuit_cached`` (the circuit
-        kernel on the card, its plain version on the CPU); the result comes
-        back in one copy."""
+        Each shard's gathered ``[s, T * tile_words]`` words go to the
+        index's device in one upload and through ``run_circuit_cached``
+        (the circuit kernel on the card, its plain version on the CPU); the
+        result comes back in one copy."""
         from repro_torch.kernels.threshold_ssum import run_circuit_cached
 
         tiles = np.asarray(sorted(view.pending), dtype=np.int64)
         view.pending.clear()
-        d = self._delta
+        toffs = self._tile_offsets()
         words_touched = 0
         gathered = 0
         delta_card = 0
-        if tiles.size:
+        refreshed_tiles = set()
+        for shard, (t0, d) in enumerate(zip(toffs, self._deltas)):
+            local = tiles[(tiles >= t0) & (tiles < t0 + d.n_tiles)] - t0
+            if local.size == 0:
+                continue
             tw = d.tile_words
             if view.residual is None:
-                out = np.full((tiles.size, tw), 0xFFFFFFFF if view.const else 0,
+                out = np.full((local.size, tw), 0xFFFFFFFF if view.const else 0,
                               np.uint32)
             else:
-                arr = self._gather_support_tiles(view.kept, tiles)
+                arr = self._gather_support_tiles(shard, view.kept, local)
                 gathered += arr.size
                 words_touched += arr.size
                 got = run_circuit_cached(
@@ -603,11 +668,11 @@ class StreamingIndex:
                     view.residual,
                 )
                 out = np.array(to_numpy_u32(got), np.uint32).reshape(
-                    tiles.size, tw
+                    local.size, tw
                 )
-            words_touched += tiles.size * tw
+            words_touched += local.size * tw
             span = tw * 32
-            for li, t in enumerate(tiles.tolist()):
+            for li, t in enumerate(local.tolist()):
                 # the universe may end inside this tile: a truth table with
                 # f(0)=1 would otherwise set padding bits past r, corrupting
                 # the popcount-delta count
@@ -621,6 +686,7 @@ class StreamingIndex:
                     else:
                         w[fw:] = 0
                 delta_card += d.patch_tile(view.slot, int(t), out[li])
+            refreshed_tiles.update((t0 + local).tolist())
         view.cardinality += delta_card
         if _OBS.enabled:
             _REFRESHES.inc(1)
@@ -635,19 +701,20 @@ class StreamingIndex:
         # a view is an input to any later view that references it
         for other in self._views.values():
             if other is not view and view.slot in other.support:
-                other.pending.update(tiles.tolist())
+                other.pending.update(refreshed_tiles)
 
     # -- compaction --------------------------------------------------------
     def compact(self, force: bool = True) -> bool:
         """Fold the delta into a new base store, tile-granularly.
 
-        Only touched tiles reclassify (``TileStore.apply_tile_updates``).
-        Returns True when a merge actually happened.  ``force=False``
+        Only touched tiles reclassify (``TileStore.apply_tile_updates``);
+        under sharding each shard compacts its own delta locally.  Returns
+        True when a merge actually happened.  ``force=False``
         applies the :class:`CompactionPolicy` threshold instead of
         compacting unconditionally.
         """
         self.refresh()
-        if self._delta.empty:
+        if all(d.empty for d in self._deltas):
             return False
         if not force and not self.policy.should_compact(
             self.delta_words, self._base_working_words()
@@ -656,10 +723,21 @@ class StreamingIndex:
         if _OBS.enabled:
             _COMPACTIONS.inc(1)
             _COMPACTED_WORDS.observe(float(self.delta_words))
-        store = self._base.store.apply_tile_updates(
-            self._delta.updates(), r=self._delta.r
-        )
-        self._base = BitmapIndex(names=self._names, _store=store)
+        if self._sharded:
+            from repro_torch.dist.query import ShardedBitmapIndex
+
+            shards = tuple(
+                s if d.empty else s.apply_tile_updates(d.updates(), r=d.r)
+                for s, d in zip(self._base.store.shards, self._deltas)
+            )
+            self._base = ShardedBitmapIndex(
+                self._base.store.with_shards(shards), self._names
+            )
+        else:
+            store = self._base.store.apply_tile_updates(
+                self._deltas[0].updates(), r=self._deltas[0].r
+            )
+            self._base = BitmapIndex(names=self._names, _store=store)
         self._reset_deltas()
         self._overlay_cache = None
         self._version += 1
@@ -692,7 +770,7 @@ class StreamingIndex:
                 "checkpoint() needs a durable index: pass durable_dir= to "
                 "StreamingIndex"
             )
-        from repro_torch.persist import save
+        from repro_torch.persist import save, save_sharded
         from repro_torch.persist.wal import query_to_obj
 
         self.refresh()
@@ -702,13 +780,16 @@ class StreamingIndex:
             for v in self._views.values()  # registration order
         ]
         meta = {
-            "sharded": False,
+            "sharded": self._sharded,
             "wal_version": int(self._wal.last_version),
             "names": list(self._names),
             "views": views_meta,
         }
         extra = {"wal_version": meta["wal_version"], "views": views_meta}
-        save(self._base, self._dir / "snapshot.bmsnap", extra=extra)
+        if self._sharded:
+            save_sharded(self._base, self._dir, extra=extra)
+        else:
+            save(self._base, self._dir / "snapshot.bmsnap", extra=extra)
         (self._dir / "index.json").write_text(
             json.dumps(meta, indent=2, sort_keys=True)
         )
@@ -717,9 +798,10 @@ class StreamingIndex:
 
     @classmethod
     def recover(cls, path, *, policy: CompactionPolicy | None = None,
-                device=None) -> "StreamingIndex":
+                device=None, devices=None) -> "StreamingIndex":
         """Rebuild a durable index from its directory on ``device``
-        (default: the CUDA card): load the snapshot (memmap, no copy),
+        (default: the CUDA card; a sharded directory's shard ``k`` goes to
+        ``devices[k]`` when given): load the snapshot (memmap, no copy),
         re-register the materialized views from the manifest, then replay
         every WAL record after the snapshot's version.  A torn record at
         the log's tail (the crash case) is truncated away; the recovered
@@ -728,7 +810,7 @@ class StreamingIndex:
         import json
         from pathlib import Path
 
-        from repro_torch.persist import load_index
+        from repro_torch.persist import load_index, load_sharded
         from repro_torch.persist.wal import (
             APPEND,
             MATERIALIZE,
@@ -740,8 +822,9 @@ class StreamingIndex:
         d = Path(path)
         meta = json.loads((d / "index.json").read_text())
         if meta["sharded"]:
-            raise NotImplementedError(_SHARDED)
-        base = load_index(d / "snapshot.bmsnap", device=device)
+            base = load_sharded(d, device=device, devices=devices)
+        else:
+            base = load_index(d / "snapshot.bmsnap", device=device)
         self = cls(base, policy=policy)
         self._dir = d
         self._rebuild_views(
@@ -777,7 +860,11 @@ class StreamingIndex:
             if name not in self._slot:  # pragma: no cover - corrupt manifest
                 raise ValueError(f"view {name!r} missing from snapshot schema")
             slot = self._slot[name]
-            card = int(self._base.store.cardinalities[slot])
+            if self._sharded:
+                card = sum(int(s.cardinalities[slot])
+                           for s in self._base.store.shards)
+            else:
+                card = int(self._base.store.cardinalities[slot])
             circ = circuit_for((q,), self.n, self._names)
             support = circ.support()
             const, residual, kept = circ.specialize(

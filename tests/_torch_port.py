@@ -74,11 +74,11 @@ def container_mix_bits(n, seed, n_tiles=6, tail_bits=333):
     return bits
 
 
-def stream_pair(bits, *, tile_words=64, policy=None, durable=(None, None)):
+def stream_pair(bits, *, tile_words=64, policy=None, durable=(None, None), n_shards=None):
     """The same bits as a reference ``StreamingIndex`` and a port one (on
     ``device="cpu"``), columns ``c0..c{n-1}``; ``policy`` holds
     ``CompactionPolicy`` keywords (default ``auto=False``), ``durable`` the
-    two ``durable_dir`` arguments."""
+    two ``durable_dir`` arguments; ``n_shards`` row-shards both bases."""
     import jax.numpy as jnp
 
     from repro import query as RQ
@@ -88,30 +88,45 @@ def stream_pair(bits, *, tile_words=64, policy=None, durable=(None, None)):
 
     names = [f"c{i}" for i in range(bits.shape[0])]
     kw = {"auto": False} if policy is None else dict(policy)
-    ref = RSt.StreamingIndex(
-        RQ.BitmapIndex.from_dense(jnp.asarray(bits), names, tile_words=tile_words),
-        policy=RSt.CompactionPolicy(**kw), durable_dir=durable[0])
-    tor = TSt.StreamingIndex(
-        TQ.BitmapIndex.from_dense(bits, names, tile_words=tile_words, device="cpu"),
-        policy=TSt.CompactionPolicy(**kw), durable_dir=durable[1])
+    rbase = RQ.BitmapIndex.from_dense(jnp.asarray(bits), names, tile_words=tile_words)
+    tbase = TQ.BitmapIndex.from_dense(bits, names, tile_words=tile_words, device="cpu")
+    if n_shards is not None:
+        rbase, tbase = rbase.shard(n_shards=n_shards), tbase.shard(n_shards=n_shards)
+    ref = RSt.StreamingIndex(rbase, policy=RSt.CompactionPolicy(**kw), durable_dir=durable[0])
+    tor = TSt.StreamingIndex(tbase, policy=TSt.CompactionPolicy(**kw), durable_dir=durable[1])
     return ref, tor
+
+
+def gathered(res):
+    """A result as a single packed row: a sharded one is gathered."""
+    return res.gather() if hasattr(res, "shards") else res
+
+
+def same_plan(rp, tp):
+    """A plan, or per-shard plans (``ShardedPlan``), equal to the reference's."""
+    if hasattr(rp, "plans"):
+        assert len(tp.plans) == len(rp.plans)
+        for a, b in zip(tp.plans, rp.plans):
+            same_plan(b, a)
+        return
+    assert (tp.algorithm, tp.cost, tp.candidates) == (rp.algorithm, rp.cost, rp.candidates)
 
 
 def same_answer(ref, tor, make_query, **kw):
     """Execute ``make_query(module)`` -- built once from the reference's
     ``repro.query`` and once from ``repro_torch.query`` -- on a reference
-    and a port index (or streaming index) and hold the words, the plan and
-    ``last_info`` equal.  Returns the words."""
+    and a port index (or streaming index, sharded or not) and hold the
+    words, the plan and ``last_info`` equal.  Returns the words."""
     from repro import query as RQ
     from repro_torch import query as TQ
 
     rq, tq = make_query(RQ), make_query(TQ)
-    want, got = u32(ref.execute(rq, **kw)), u32(tor.execute(tq, **kw))
+    want = u32(gathered(ref.execute(rq, **kw)))
+    got = u32(gathered(tor.execute(tq, **kw)))
     assert np.array_equal(got, want), (rq, kw)
     ridx = ref.index() if hasattr(ref, "index") else ref
     tidx = tor.index() if hasattr(tor, "index") else tor
     assert tidx.last_info == ridx.last_info, (rq, kw)
     if "backend" not in kw:
-        rp, tp = ref.explain(rq), tor.explain(tq)
-        assert (tp.algorithm, tp.cost, tp.candidates) == (rp.algorithm, rp.cost, rp.candidates)
+        same_plan(ref.explain(rq), tor.explain(tq))
     return got

@@ -72,10 +72,8 @@ def test_measure_calibration_raises_on_a_failing_backend(monkeypatch):
 
 
 def test_persist_exports_and_round_trip(tmp_path):
-    # the reference's exports, less the per-shard files that come with sharding
-    sharded = {"save_sharded", "load_sharded", "load_shard", "read_shard_map"}
     ref_all = importlib.import_module("repro.persist").__all__
-    assert sorted(TPersist.__all__) == sorted(set(ref_all) - sharded)
+    assert sorted(TPersist.__all__) == sorted(ref_all)
     assert {"ensure_calibration", "load_calibration", "save_calibration"} <= set(TPersist.__all__)
     c = TCal.Calibration(device="identity", us_per_kword={"ssum": 2.5, "fused": 0.5},
                          dispatch_us={"fused": 40.0}, samples={"ssum": 3})

@@ -20,7 +20,9 @@ def test_port_imports_neither_jax_nor_reference():
         "repro_torch.stream.index, repro_torch.persist.format, repro_torch.persist.snapshot, "
         "repro_torch.persist.wal, repro_torch.persist.tiers, repro_torch.serve, "
         "repro_torch.serve.frontend, repro_torch.search, repro_torch.search.tokenize, "
-        "repro_torch.search.similarity, repro_torch.search.window; "
+        "repro_torch.search.similarity, repro_torch.search.window, repro_torch.dist, "
+        "repro_torch.dist.query, repro_torch.persist.shards, repro_torch.serve.masks, "
+        "repro_torch.data, repro_torch.data.paper_datasets; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]; "
         "print('BAD', bad); sys.exit(1 if bad else 0)"
@@ -38,7 +40,8 @@ def test_sources_name_neither_jax_nor_reference():
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     for new in ("serve/frontend.py", "search/tokenize.py", "search/similarity.py",
-                "search/window.py"):
+                "search/window.py", "dist/__init__.py", "dist/query.py", "persist/shards.py",
+                "serve/masks.py", "data/__init__.py", "data/paper_datasets.py"):
         assert os.path.join(SRC, "repro_torch", *new.split("/")) in files
     for path in files:
         with open(path) as f:

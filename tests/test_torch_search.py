@@ -8,9 +8,9 @@ candidate bitmaps word for word (``np.array_equal`` on ``uint32``), with
 their ids, ``t`` and ``vacuous``; search matches, top-k order, relaxation
 and verification counts; window counts, ids and refresh accounting.  The
 tolerance is none, except ``decayed_count`` (a float sum): relative 1e-12.
-These are the unsharded cases of ``tests/test_search.py``, each on every
-backend where the case takes one; sharded indexes wait for ``ROADMAP.md``
-Queue 1 item 10.
+These are the cases of ``tests/test_search.py``, each on every backend
+where the case takes one; the sharded top-k and append cases run over
+row-sharded indexes (``n_shards``) in both packages.
 """
 from __future__ import annotations
 
@@ -205,6 +205,24 @@ def test_topk_equal_every_backend(backend):
             _brute_topk(TOPK_CORPUS, q, k)
 
 
+@pytest.mark.parametrize("backend", BACKENDS, ids=lambda b: b or "planner")
+def test_topk_equal_every_backend_sharded(backend):
+    """``tests/test_search.py:180``, sharded: 3 row shards in both packages
+    (one-word tiles, so that the corpus spans more than one tile); the
+    candidates of each query are held equal word for word too."""
+    corpus = _corpus(100, seed=12) + ["hello", "hellp", "zq"]
+    ref, tor = _pair(corpus, q=2, n_shards=3, tile_words=1)
+    assert tor.index.n_shards == ref.index.n_shards == 3
+    for q, k in (("hello", 3), ("zq", 5)):
+        want, got = ref.topk(q, k, backend=backend), tor.topk(q, k, backend=backend)
+        _same_topk(want, got)
+        assert list(zip(got.distances.tolist(), got.ids.tolist())) == \
+            _brute_topk(corpus, q, k)
+        want, got = _both(lambda idx: idx.candidates(q, 1, backend=backend), ref, tor)
+        if want is not None:  # wide_or / wide_and refuse other thresholds alike
+            _same_candidates(want, got)
+
+
 TOPK_CASES = {
     "vacuous": (lambda: _corpus(20, seed=8) + ["qz"], "zq", 21, {}),
     "relaxation_bands": (lambda: _corpus(200, seed=13) + ["hello", "hellp"], "hello", 2, {}),
@@ -259,6 +277,29 @@ def test_append_with_new_grams_equal(backend):
         assert list(zip(got.distances.tolist(), got.ids.tolist())) == _brute_topk(full, s, k)
 
 
+@pytest.mark.parametrize("backend", [None, "fused", "tiled_fused"],
+                         ids=lambda b: b or "planner")
+def test_append_with_new_grams_equal_sharded(backend):
+    """``tests/test_search.py:228``, sharded: the appended rows extend the
+    last of 2 shards, the new grams become new columns of every shard."""
+    corpus = _corpus(64, seed=21)
+    ref, tor = _pair(corpus, q=2, n_shards=2, tile_words=1)
+    assert tor.index.n_shards == ref.index.n_shards == 2
+    extra = ["zzzyx", corpus[0], "naïve"]
+    assert tor.append(extra) == ref.append(extra) == (64, 67)
+    assert tor.stream.names == ref.stream.names and tor.stream.is_sharded
+    full = corpus + extra
+    for s, k in (("zzzyx", 1), ("naive", 1), (corpus[0], 0)):
+        _same_candidates(ref.candidates(s, k, backend=backend),
+                         tor.candidates(s, k, backend=backend))
+        assert tor.search(s, k, backend=backend).ids.tolist() == \
+            ref.search(s, k, backend=backend).ids.tolist()
+    for s, k in (("zzzyx", 2), (corpus[0], 3)):
+        want, got = ref.topk(s, k, backend=backend), tor.topk(s, k, backend=backend)
+        _same_topk(want, got)
+        assert list(zip(got.distances.tolist(), got.ids.tolist())) == _brute_topk(full, s, k)
+
+
 def test_empty_append_is_noop():
     tor = TS.build_qgram_index(["abc"], q=2, device="cpu")
     assert tor.append([]) == (1, 1) and tor.r == 1
@@ -274,13 +315,6 @@ def test_device_none_is_the_card():
         TS.build_qgram_index(["ab", "cd"])
     with pytest.raises(RuntimeError, match="CUDA"):
         TS.WindowedStream(["a"], window=1.0)
-
-
-def test_sharded_index_waits_for_item_10():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        TS.SimilarityIndex(["ab", "cd"], n_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        TS.build_qgram_index(["ab", "cd"], n_shards=2, device="cpu")
 
 
 # ---------------------------------------------------------------------------

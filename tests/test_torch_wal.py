@@ -257,14 +257,3 @@ def test_durable_index_refuses_schema_growth_and_needs_a_dir(tmp_path):
     with pytest.raises(RuntimeError):
         plain.checkpoint()
     assert plain.wal_version == 0 and plain.durable_dir is None
-
-
-def test_sharded_streaming_is_refused_with_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TStream(object())
-    d = tmp_path / "d"
-    d.mkdir()
-    (d / "index.json").write_text(json.dumps({"sharded": True, "wal_version": 0,
-                                              "names": [], "views": []}))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TStream.recover(d, device="cpu")
