@@ -133,6 +133,22 @@ What it does, one JSON object per line:
                        dense copy; ``head_vote_mask`` over 64 x 2**20 KV
                        positions through K1 against its plain version and
                        numpy, and the KV-tile skip list.
+18. ``lm_serve``    -- run last: qwen3-1.7b at full width (1,720,574,976
+                       float32 parameters from ``--seed``) served by a
+                       ``ServeEngine`` of 8 slots and ``max_seq`` 512 to 16
+                       requests (prompts of 32-128 seeded tokens, 32 new
+                       tokens each); tokens/s, engine steps, prefill and
+                       decode-step ms (CUDA events), host ms per step in
+                       slot commits and queries, K1 launches in the window
+                       and per ``free_slots()`` call (at least one each),
+                       free / draining slots against the request table after
+                       every step, the decode step against its byte bound;
+                       4 requests decoded alone equal to their batched
+                       output; decode against the forward pass; a profile
+                       of 3 decode steps; the reduced model on the CPU and
+                       the card (logits within 1e-4); and the reduced
+                       recurrentgemma, mixtral, rwkv6 and gemma2 batched
+                       against alone.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line (each kernel's ``launches`` from its main path's own window: K1's
@@ -3101,6 +3117,327 @@ def masks_run(dev, seed: int) -> dict:
             "skiplist": info, "to_result_ms": to_result_ms(lambda: head_vote_mask(votes, MASK_T))}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the LM serving path (models, ServeEngine) with slot queries on K1
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-1.7b"
+LM_PARAMS = 1_720_574_976  # the reference's param_count_exact of the full config
+LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS, LM_MAX_NEW = 8, 512, 16, 32
+LM_PROMPT_LENGTHS = (32, 128)  # inclusive
+LM_UNBATCHED = 4  # requests also decoded alone, each against the batched output
+LM_FAMILIES = ("recurrentgemma-2b", "mixtral-8x22b", "rwkv6-3b", "gemma2-27b")
+# decode at position p against the forward over the prefix through p, on the
+# card: the two sum 28 layers in another order (prefill's [1, p, d] products
+# beside decode's [8, 1, d] ones); logits are O(1)
+LM_PREFILL_DECODE_TOL = {"atol": 2e-3, "rtol": 1e-3}
+# the reduced model on the card against the same weights on the CPU: float32
+# everywhere, TF32 off, two libraries' summation orders
+LM_CPU_CARD_TOL = {"atol": 1e-4, "rtol": 1e-4}
+LM_BYTES = 4  # float32 weights and caches
+
+
+def lm_decode_bound(cfg, slots: int, max_seq: int) -> dict:
+    """The least time of one decode step: every weight read once, plus the
+    K and V caches the reference attends over (the whole ``max_seq`` of
+    each slot, ring length for a local layer), over 3.35 TB/s."""
+    from repro_torch.models.model import _ATTN_KINDS, _cache_len, block_kinds
+
+    weight_bytes = cfg.param_count() * LM_BYTES
+    kv_bytes = sum(2 * slots * _cache_len(kind, cfg, max_seq) * cfg.kv_dim * LM_BYTES
+                   for kind in block_kinds(cfg) if kind in _ATTN_KINDS)
+    weights_ms = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    kv_ms = kv_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"weight_bytes": weight_bytes, "kv_bytes": kv_bytes, "weights_ms": weights_ms,
+            "kv_ms": kv_ms, "bound_ms": weights_ms + kv_ms,
+            "bound_tokens_per_s": slots / ((weights_ms + kv_ms) / 1e3)}
+
+
+def greedy_alone(model, cfg, prompt: list, max_new: int, max_seq: int, dev) -> list:
+    """Unbatched greedy decode: prefill, then ``decode_step`` at one (scalar)
+    position."""
+    from repro_torch.models import decode_step, forward
+
+    toks = torch.tensor(prompt, dtype=torch.long, device=dev)[None, :]
+    _, caches, _ = forward(model, cfg, {"tokens": toks}, mode="prefill", max_seq=max_seq)
+    out, cur, pos = [], toks[:, -1:], len(prompt)
+    for _ in range(max_new):
+        logits, caches = decode_step(model, cfg, caches, cur, pos)
+        cur = logits.argmax(-1)
+        out.append(int(cur[0, 0]))
+        pos += 1
+    return out
+
+
+def lm_requests(cfg, n: int, lengths: tuple, max_new: int, rng) -> list:
+    from repro_torch.serve import Request
+
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(lengths[0],
+                                                                        lengths[1] + 1)).tolist(),
+                    max_new=max_new) for i in range(n)]
+
+
+class EngineProbe:
+    """Wraps one ``ServeEngine`` instance's methods to time and count what a
+    run does: CUDA events around every decode step and prefill, host time of
+    the slot commits and the engine's own slot queries, K1 launches per
+    ``free_slots()`` call, and after every step free / draining slots
+    against the request table (the oracle's own queries are not timed)."""
+
+    def __init__(self, eng):
+        from repro_torch.kernels import threshold_ssum as K
+
+        self.eng, self.K = eng, K
+        self.decode_events, self.prefill_events = [], []
+        self.host_s, self.free_launches, self.steps_checked = 0.0, [], 0
+        self._in_oracle = False
+        for name in ("_decode", "_prefill"):
+            setattr(eng, name, self._events(getattr(eng, name), self.decode_events
+                                            if name == "_decode" else self.prefill_events))
+        for name in ("_commit_slot_state", "select_slots"):
+            setattr(eng, name, self._host_timed(getattr(eng, name)))
+        free, step = eng.free_slots, eng.step
+
+        def free_slots():
+            before = K.launch_counts["circuit_eval"]
+            got = free()
+            if not self._in_oracle:
+                self.free_launches.append(K.launch_counts["circuit_eval"] - before)
+            return got
+
+        def checked_step():
+            emitted = step()
+            self._in_oracle = True
+            try:
+                want_free = [i for i, r in enumerate(eng.requests) if r is None]
+                want_near = [i for i, r in enumerate(eng.requests) if r is not None
+                             and eng.pos[i] >= eng.max_seq - eng._near_margin]
+                got = (eng.free_slots(), eng.draining_slots())
+            finally:
+                self._in_oracle = False
+            check(got == (want_free, want_near),
+                  f"step {eng.step_count}: slot queries {got} vs the oracle "
+                  f"{(want_free, want_near)}")
+            self.steps_checked += 1
+            return emitted
+
+        eng.free_slots, eng.step = free_slots, checked_step
+
+    def _events(self, fn, into: list):
+        def timed(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            into.append((e0, e1))
+            return out
+        return timed
+
+    def _host_timed(self, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if not self._in_oracle:
+                    self.host_s += time.perf_counter() - t0
+        return timed
+
+    @staticmethod
+    def ms(events: list) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in events]
+
+
+def lm_serve_run(cfg, model, dev, seed: int) -> dict:
+    """The main path: ``ServeEngine`` over ``LM_REQUESTS`` seeded prompts,
+    launch counts read around it, then each of ``LM_UNBATCHED`` requests
+    decoded alone against its batched output.  Returns the report and
+    request 0's prompt and output."""
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, device=dev)
+    probe = EngineProbe(eng)
+    reqs = lm_requests(cfg, LM_REQUESTS, LM_PROMPT_LENGTHS, LM_MAX_NEW,
+                       np.random.default_rng(seed + 31))
+    prompts = {r.rid: list(r.prompt) for r in reqs}
+    # counts to 0 just before the serving path is driven, read just after
+    zero_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained(reqs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts("lm_serve")
+    check(sorted(r.rid for r in done) == list(range(LM_REQUESTS))
+          and all(len(r.out) == LM_MAX_NEW for r in done),
+          "every request was served to max_new tokens")
+    check(counts["circuit_eval"] >= 1, f"slot queries launched K1, {counts}")
+    check(min(probe.free_launches) >= 1,
+          f"every free_slots() launched K1: {probe.free_launches}")
+    check(probe.steps_checked == eng.step_count, "the oracle checked every step")
+    decode_ms, prefill_ms = probe.ms(probe.decode_events), probe.ms(probe.prefill_events)
+    tokens = sum(len(r.out) for r in done)
+    bound = lm_decode_bound(cfg, LM_SLOTS, LM_MAX_SEQ)
+    dmed = statistics.median(decode_ms)
+    report = {
+        "arch": cfg.name, "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ, "requests": LM_REQUESTS,
+        "prompt_tokens": sum(len(p) for p in prompts.values()), "max_new": LM_MAX_NEW,
+        "tokens": tokens, "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+        "engine_steps": eng.step_count, "decode_steps_timed": len(decode_ms),
+        "decode_step_ms": {"median": dmed, "min": min(decode_ms), "max": max(decode_ms)},
+        "prefill_ms_per_request": {"median": statistics.median(prefill_ms),
+                                   "min": min(prefill_ms), "max": max(prefill_ms)},
+        "host_ms_per_step": probe.host_s * 1e3 / eng.step_count,
+        "free_slots_calls": len(probe.free_launches),
+        "k1_launches_per_free_slots": sorted(set(probe.free_launches)),
+        "launch_counts": counts, "decode_bound": bound,
+        "decode_share_of_bound": bound["bound_ms"] / dmed,
+        "steps_checked_against_oracle": probe.steps_checked,
+    }
+    # batched == unbatched greedy decode, on the card
+    by_rid = {r.rid: r.out for r in done}
+    t0 = time.perf_counter()
+    for rid in range(LM_UNBATCHED):
+        alone = greedy_alone(model, cfg, prompts[rid], LM_MAX_NEW, LM_MAX_SEQ, dev)
+        check(alone == by_rid[rid], f"request {rid}: batched {by_rid[rid]} vs alone {alone}")
+    report["unbatched_checked"] = LM_UNBATCHED
+    report["unbatched_s"] = time.perf_counter() - t0
+    return report, prompts[0], by_rid[0]
+
+
+def lm_prefill_decode_err(model, cfg, seq: list, p: int, dev) -> float:
+    """decode_step's logits at position ``p`` after a prefill of ``seq[:p]``,
+    against ``forward`` over ``seq[:p + 1]`` at its last position."""
+    from repro_torch.models import decode_step, forward, logits_from_hidden
+
+    toks = torch.tensor(seq[: p + 1], dtype=torch.long, device=dev)[None, :]
+    h, _, _ = forward(model, cfg, {"tokens": toks})
+    full = logits_from_hidden(model, cfg, h[:, -1:])
+    _, caches, _ = forward(model, cfg, {"tokens": toks[:, :p]}, mode="prefill",
+                           max_seq=LM_MAX_SEQ)
+    dec, _ = decode_step(model, cfg, caches, toks[:, p:], p)
+    check(torch.allclose(dec, full, **LM_PREFILL_DECODE_TOL),
+          f"decode at {p} vs forward: max abs err {float((dec - full).abs().max())}")
+    return float((dec - full).abs().max())
+
+
+def lm_cpu_card_err(cfg, dev, seed: int) -> dict:
+    """The reduced model with the same weights on the CPU and on the card:
+    prefill hidden states and logits, then three decode steps."""
+    import copy
+
+    from repro_torch.models import decode_step, forward, init_params, logits_from_hidden
+
+    cpu = init_params(cfg, seed, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(seed + 37).integers(0, cfg.vocab, (2, 24)))
+    errs = []
+    sides = []
+    for model, d in ((cpu, torch.device("cpu")), (card, dev)):
+        h, caches, _ = forward(model, cfg, {"tokens": toks.to(d)}, mode="prefill", max_seq=64)
+        outs = [logits_from_hidden(model, cfg, h)]
+        cur = toks[:, -1:].to(d)
+        for i in range(3):
+            logits, caches = decode_step(model, cfg, caches, cur, 24 + i)
+            outs.append(logits)
+            cur = torch.full_like(cur, 7 + i)  # the same feed on both sides
+        sides.append([o.cpu() for o in outs])
+    for a, b in zip(*sides):
+        check(torch.allclose(b, a, **LM_CPU_CARD_TOL),
+              f"card vs CPU logits: max abs err {float((b - a).abs().max())}")
+        errs.append(float((b - a).abs().max()))
+    return {"arch": cfg.name, "tolerance": LM_CPU_CARD_TOL, "max_abs_err": max(errs),
+            "checked": ["prefill logits", "decode 1", "decode 2", "decode 3"]}
+
+
+def lm_family_run(arch: str, dev, seed: int) -> dict:
+    """A reduced config through the engine on the card: batched == alone."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(arch, reduced=True)
+    if cfg.moe:  # no capacity drops, as tests/test_serve.py decodes MoE archs
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    model = init_params(cfg, seed, device=dev)
+    reqs = lm_requests(cfg, 4, (3, 30), 8, np.random.default_rng(seed + 41))
+    prompts = {r.rid: list(r.prompt) for r in reqs}
+    eng = ServeEngine(cfg, model, batch_slots=2, max_seq=64, device=dev)
+    t0 = time.perf_counter()
+    done = {r.rid: r.out for r in eng.run_until_drained(reqs)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for rid, prompt in prompts.items():
+        alone = greedy_alone(model, cfg, prompt, 8, 64, dev)
+        check(alone == done[rid], f"{arch} request {rid}: batched {done[rid]} vs alone {alone}")
+    return {"arch": arch, "requests": len(prompts), "engine_steps": eng.step_count,
+            "wall_s": wall, "batched_equals_alone": True}
+
+
+def decode_profile(eng, steps: int = 3) -> dict:
+    """``torch.profiler`` over a few decode steps of a full engine: kernels
+    launched and device busy time per step beside the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.zeros((eng.slots, 1), dtype=torch.long, device=eng.device)
+    pos = torch.from_numpy(eng.pos).to(eng.device)
+    eng._decode(eng.params, caches=eng.cache, tokens=tokens, pos=pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng._decode(eng.params, caches=eng.cache, tokens=tokens, pos=pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    return {"steps": steps, "kernels_per_step": len(kernels) / steps,
+            "device_busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if kernels else None}
+
+
+def phase_lm_serve(dev, smi: str, seed: int, cfg=None) -> None:
+    """qwen3-1.7b at full width (``cfg``: another config, for a rehearsal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    # full float32 products: TF32 would keep about three decimal digits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = cfg is None
+    cfg = cfg or get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(), f"{n_params} parameters vs param_count_exact")
+    if full:
+        check(n_params == LM_PARAMS, f"qwen3-1.7b has {n_params} parameters, not {LM_PARAMS}")
+    report = {"card": smi, "arch": cfg.name, "params": n_params, "dtype": "float32",
+              "init_s": init_s, "weights_max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    report["serve"], prompt, out = lm_serve_run(cfg, model, dev, seed)
+    report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    seq, p0 = prompt + out, len(prompt)
+    report["prefill_decode"] = {
+        "tolerance": LM_PREFILL_DECODE_TOL,
+        "max_abs_err": max(lm_prefill_decode_err(model, cfg, seq, p, dev)
+                           for p in (p0, p0 + LM_MAX_NEW // 2)),
+        "positions": [p0, p0 + LM_MAX_NEW // 2]}
+    eng = ServeEngine(cfg, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, device=dev)
+    report["decode_profile"] = decode_profile(eng)
+    del eng, model
+    torch.cuda.empty_cache()
+    report["cpu_vs_card"] = lm_cpu_card_err(get_config(LM_ARCH, reduced=True), dev, seed)
+    report["families"] = [lm_family_run(arch, dev, seed) for arch in LM_FAMILIES]
+    emit("lm_serve", **report)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-log2", type=int, default=27,
@@ -3157,6 +3494,7 @@ def main() -> int:
     timed("serve_stream", phase_serve_stream, stream, smi, args.seed)
     del stream
     timed("search", phase_search, dev, args.search_rows_log2, smi, args.seed)
+    timed("lm_serve", phase_lm_serve, dev, smi, args.seed)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port must not import jax or the reference package")
 

@@ -1,0 +1,33 @@
+"""stablelm-12b [dense]: 40L d_model=5120 32H (GQA kv=8) d_ff=13824
+vocab=100352 [hf:stabilityai/stablelm-2-12b; hf].  Per-head qk layernorm."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-12b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=160,
+    d_ff=13824,
+    vocab=100352,
+    layer_pattern=("attn",),
+    qk_norm=True,
+    tie_embeddings=False,
+)
+
+REDUCED = ModelConfig(
+    name="stablelm-12b-reduced",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    d_ff=128,
+    vocab=512,
+    layer_pattern=("attn",),
+    qk_norm=True,
+    tie_embeddings=False,
+)

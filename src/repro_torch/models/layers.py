@@ -1,0 +1,381 @@
+"""Shared neural layers of the port: norms, RoPE, GQA attention (full /
+windowed / bidirectional, logit softcap, qk-norm), gated MLP, and MoE with
+local sort-based dispatch.
+
+The port of ``repro.models.layers``.  Each function takes the block's
+``nn.Module`` where the reference takes its params dict; the modules'
+parameters carry the reference's key names (``p.wq`` is ``p["wq"]``), so
+the code reads like the reference's.  Only the reference's unsharded
+branches are here: the mesh branches of ``embedding_lookup`` and ``moe``
+and the head-repeat of ``attention`` under tensor parallelism come with
+the port's ``dist/context.py``.
+
+Matrix products are ``torch.matmul`` / ``einsum`` (the reference leaves
+them to XLA; no Pallas here).  Where ``jnp`` promotes mixed float32 /
+bfloat16 operands, ``_mm`` and ``_einsum`` cast explicitly: torch refuses
+mixed dtypes in a product.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+__all__ = [
+    "NEG_INF", "BLOCKED_ATTN_THRESHOLD", "Init", "Attention", "MLP", "MoE",
+    "rms_norm", "softcap", "act_fn", "rope", "attention", "embedding_lookup",
+    "mlp", "moe_route", "moe_dispatch_local", "moe",
+]
+
+NEG_INF = -1e30
+
+# use online-softmax blocked attention from this sequence length up: the
+# dense [B,H,G,S,S] fp32 score transient is the dominant memory term
+BLOCKED_ATTN_THRESHOLD = 4096
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+class Init:
+    """Draws a model's initial weights, in construction order, from one
+    explicit ``torch.Generator`` on ``device``.  On the meta device it
+    allocates nothing and draws nothing (shapes only)."""
+
+    def __init__(self, seed: int, device: torch.device, dtype: torch.dtype):
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.gen = None
+        if self.device.type != "meta":
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(int(seed))
+
+    def _param(self, x: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(x, requires_grad=False)
+
+    def _empty(self, shape, dtype) -> nn.Parameter:
+        return self._param(torch.empty(shape, dtype=dtype, device=self.device))
+
+    def dense(self, fan_in: int, shape, dtype=None) -> nn.Parameter:
+        """N(0, 1/fan_in), drawn in float32 and cast (the reference's ``_dense_init``)."""
+        return self.normal(shape, 1.0 / math.sqrt(fan_in), dtype)
+
+    def normal(self, shape, std: float, dtype=None) -> nn.Parameter:
+        dtype = dtype or self.dtype
+        if self.gen is None:
+            return self._empty(shape, dtype)
+        x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
+        return self._param((x * std).to(dtype))
+
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        """float32 U(lo, hi), not a parameter (the caller transforms it)."""
+        if self.gen is None:
+            return torch.empty(shape, dtype=torch.float32, device=self.device)
+        u = torch.rand(shape, generator=self.gen, dtype=torch.float32, device=self.device)
+        return u * (hi - lo) + lo
+
+    def full(self, shape, value: float, dtype=None) -> nn.Parameter:
+        dtype = dtype or self.dtype
+        if self.gen is None:
+            return self._empty(shape, dtype)
+        return self._param(torch.full(shape, value, dtype=dtype, device=self.device))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        d = cfg.d_model
+        self.ln = init.full((d,), 1.0)
+        self.wq = init.dense(d, (d, cfg.q_dim))
+        self.wk = init.dense(d, (d, cfg.kv_dim))
+        self.wv = init.dense(d, (d, cfg.kv_dim))
+        self.wo = init.dense(cfg.q_dim, (cfg.q_dim, d))
+        if cfg.qk_norm:
+            self.q_norm = init.full((cfg.head_dim,), 1.0)
+            self.k_norm = init.full((cfg.head_dim,), 1.0)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.ln = init.full((d,), 1.0)
+        self.w_gate = init.dense(d, (d, f))
+        self.w_up = init.dense(d, (d, f))
+        self.w_down = init.dense(f, (f, d))
+
+
+class MoE(nn.Module):
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+        self.ln = init.full((d,), 1.0)
+        self.router = init.dense(d, (d, e), torch.float32)  # router kept fp32
+        self.w_gate = init.dense(d, (e, d, f))
+        self.w_up = init.dense(d, (e, d, f))
+        self.w_down = init.dense(f, (e, f, d))
+
+
+# ---------------------------------------------------------------------------
+# basic ops
+# ---------------------------------------------------------------------------
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with ``jnp``'s promotion of mixed float dtypes."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with ``jnp``'s promotion of mixed float dtypes."""
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
+def rms_norm(x, scale, eps: float):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def softcap(x, cap: float):
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def act_fn(x, kind: str):
+    # jax.nn.gelu defaults to the tanh approximation; torch's to the erf form
+    return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
+
+
+def rope(x, positions, theta: float):
+    """Rotary embedding; x: [B, S, H, hd], positions: [B, S] int."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., None].float() * freq  # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def _attn_mask(pos_q, pos_kv, kind: str, window: int):
+    """[B, Sq, Skv] boolean mask. pos_kv < 0 marks invalid cache slots."""
+    valid = (pos_kv >= 0)[:, None, :]
+    if kind == "bidir":
+        return valid
+    causal = pos_q[:, :, None] >= pos_kv[:, None, :]
+    if kind == "local" and window:
+        causal = causal & (pos_q[:, :, None] - pos_kv[:, None, :] < window)
+    return causal & valid
+
+
+def _sdpa(q, k, v, mask, cap: float):
+    """q: [B,Sq,Hkv,G,hd]; k/v: [B,Skv,Hkv,hd]; mask: [B,Sq,Skv]."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    # scores in float32 (the reference's preferred_element_type)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    scores = softcap(scores * scale, cap)
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+
+
+def _sdpa_blocked(q, k, v, pos_q, pos_kv, kind, window, cap: float, kv_block: int = 1024):
+    """Online-softmax attention over KV blocks (long-sequence path).
+
+    Bounds the transient score tensor to [B,H,G,Sq,kv_block].  Like the
+    reference, which reshapes the KV axis by ``skv // kv_block``, it takes
+    only a KV length that is a multiple of ``kv_block``.
+    """
+    b, sq, hkv, g, hd = q.shape
+    skv = k.shape[1]
+    if skv == 0 or skv % kv_block:
+        raise ValueError(
+            f"blocked attention needs the KV length ({skv}) to be a positive "
+            f"multiple of kv_block ({kv_block})"
+        )
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float()
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32, device=q.device)
+    for lo in range(0, skv, kv_block):
+        kb, vb = k[:, lo:lo + kv_block], v[:, lo:lo + kv_block]
+        pb = pos_kv[:, lo:lo + kv_block]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb.float())
+        s = softcap(s * scale, cap)
+        mask = _attn_mask(pos_q, pb, kind, window)
+        s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(vb.dtype), vb
+        ).float()
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(v.dtype)  # [B,Sq,Hkv,G,hd]
+
+
+def attention(x, p: Attention, cfg: ModelConfig, kind: str, positions, kv_cache=None,
+              cache_pos=None):
+    """Self-attention sub-block.  Returns (out, new_kv) where new_kv is the
+    (k, v, positions) to cache: full for train/prefill, the updated cache
+    for decode.
+
+    Decode writes the new entry into ``kv_cache`` IN PLACE (the reference
+    returns an updated copy) and returns the same tensors: the cache is
+    the largest state of a serving engine, and a copy a step would double
+    its traffic.  ``cache_pos`` is an ``int`` (one position for the whole
+    batch: the reference's dynamic-update-slice) or an int tensor ``[B]``
+    (per-slot positions: its scatter)."""
+    b, s, d = x.shape
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    q = _mm(h, p.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = _mm(h, p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = _mm(h, p.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, s, cfg.n_kv_heads, g, cfg.head_dim)
+
+    if kv_cache is not None:  # decode: append then attend against the cache
+        ck, cv, cpos = kv_cache  # [B, Sc, Hkv, hd] x2, [B, Sc] positions (-1 empty)
+        sc = ck.shape[1]
+        if isinstance(cache_pos, int):
+            slot = cache_pos % sc  # ring buffer (bounded for local layers)
+            ck[:, slot] = k[:, 0].to(ck.dtype)
+            cv[:, slot] = v[:, 0].to(cv.dtype)
+            cpos[:, slot] = positions[:, 0].to(cpos.dtype)
+        else:
+            rows = torch.arange(b, device=ck.device)
+            slot = cache_pos.long() % sc
+            ck[rows, slot] = k[:, 0].to(ck.dtype)
+            cv[rows, slot] = v[:, 0].to(cv.dtype)
+            cpos[rows, slot] = positions[:, 0].to(cpos.dtype)
+        mask = _attn_mask(positions, cpos, kind, cfg.window)
+        out = _sdpa(qg, ck, cv, mask, cfg.attn_softcap)
+        new_cache = (ck, cv, cpos)
+    else:
+        if s >= BLOCKED_ATTN_THRESHOLD:
+            out = _sdpa_blocked(qg, k, v, positions, positions, kind, cfg.window,
+                                cfg.attn_softcap)
+        else:
+            mask = _attn_mask(positions, positions, kind, cfg.window)
+            out = _sdpa(qg, k, v, mask, cfg.attn_softcap)
+        new_cache = (k, v, positions)
+    out = out.reshape(b, s, cfg.q_dim)
+    return _mm(out, p.wo), new_cache
+
+
+def embedding_lookup(table, tokens):
+    """Row gather (the reference's unsharded ``jnp.take`` branch)."""
+    return table[tokens]
+
+
+# ---------------------------------------------------------------------------
+# dense MLP and MoE
+# ---------------------------------------------------------------------------
+
+
+def mlp(x, p: MLP, cfg: ModelConfig):
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    gate = act_fn(_mm(h, p.w_gate), cfg.act)
+    up = _mm(h, p.w_up)
+    return _mm(gate * up, p.w_down)
+
+
+def moe_route(tokens, router, cfg: ModelConfig):
+    """Top-k routing with capacity.  Returns (cap, slot [T, k], top_p,
+    top_ids, probs): ``slot`` is each (token, choice) pair's row in the
+    [E*cap] capacity buffer, or the sentinel ``E*cap`` when dropped.  A
+    pair's rank within its expert comes from a stable argsort over expert
+    ids, so an expert keeps its first ``cap`` pairs in token order."""
+    t = tokens.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    cap = min(int(math.ceil(cfg.capacity_factor * t * k / e)), t)
+    # router matmul in the compute dtype, softmax in f32 (as the reference)
+    router_logits = (tokens @ router.to(tokens.dtype)).float()
+    probs = torch.softmax(router_logits, dim=-1)
+    top_p, top_ids = torch.topk(probs, k, dim=-1)  # [T, k], descending
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+
+    flat_ids = top_ids.reshape(-1)  # [T*k], slot-major per token
+    order = torch.argsort(flat_ids, stable=True)
+    sorted_expert = flat_ids[order]
+    # rank within expert: position among all (token, slot) pairs of that expert
+    same = torch.cumsum(F.one_hot(sorted_expert, e), dim=0)
+    rank_sorted = same.gather(1, sorted_expert[:, None])[:, 0] - 1
+    rank = torch.empty_like(rank_sorted)
+    rank[order] = rank_sorted
+    slot = torch.where(rank < cap, flat_ids * cap + rank, e * cap).reshape(t, k)
+    return cap, slot, top_p, top_ids, probs
+
+
+def moe_dispatch_local(tokens, router, w_gate, w_up, w_down, cfg: ModelConfig):
+    """Sort-based top-k dispatch with capacity.
+
+    tokens: [T, D].  Routes each token to its top_k experts
+    (:func:`moe_route`), packs tokens into [E, C, D] capacity buffers
+    (pairs past capacity are dropped, Switch-style), runs the expert GEMMs,
+    and combines with the router weights.  Returns (out [T, D], the
+    load-balancing aux loss).
+    """
+    t, d = tokens.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap, slot, top_p, top_ids, probs = moe_route(tokens, router, cfg)
+
+    # fill the [E, C, D] buffer by gather: scatter the token index per slot
+    # (dropped pairs all land on the sentinel e*cap, which is cut off), then
+    # gather rows once; the sentinel row of tok_pad is zeros
+    inv = torch.full((e * cap + 1,), t, dtype=torch.long, device=tokens.device)
+    inv[slot.reshape(-1)] = torch.arange(t * k, device=tokens.device) // k
+    tok_pad = torch.cat([tokens, tokens.new_zeros((1, d))], dim=0)
+    buf = tok_pad[inv[: e * cap]].reshape(e, cap, d)
+
+    gate = act_fn(torch.bmm(buf, w_gate.to(buf.dtype)), cfg.act)
+    up = torch.bmm(buf, w_up.to(buf.dtype))
+    expert_out = torch.bmm(gate * up, w_down.to(buf.dtype))
+
+    flat_out = torch.cat([expert_out.reshape(e * cap, d), expert_out.new_zeros((1, d))], dim=0)
+    gathered = flat_out[slot.reshape(-1)].reshape(t, k, d)
+    out = torch.einsum("tkd,tk->td", gathered, top_p.to(expert_out.dtype))
+    # load-balancing auxiliary loss (Switch-style)
+    frac_tokens = F.one_hot(top_ids[:, 0], e).float().mean(0)
+    aux = e * torch.sum(frac_tokens * probs.mean(0))
+    return out, aux
+
+
+def moe(x, p: MoE, cfg: ModelConfig):
+    """MoE ffn: pre-norm, then the local dispatch over all B*S tokens."""
+    b, s, d = x.shape
+    x = rms_norm(x, p.ln, cfg.norm_eps)
+    out, aux = moe_dispatch_local(
+        x.reshape(b * s, d), p.router, p.w_gate, p.w_up, p.w_down, cfg
+    )
+    return out.reshape(b, s, d), aux

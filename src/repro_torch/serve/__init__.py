@@ -1,5 +1,9 @@
-"""Serving layer of the port: the query front-end and attention masks.
+"""Serving layer of the port: the decode engine, the query front-end and
+attention masks.
 
+  * :mod:`~repro_torch.serve.engine` -- :class:`ServeEngine`, the
+    continuous-batching decode engine whose slot-selection state is a
+    streaming bitmap index (slot queries run K1 on the card);
   * :mod:`~repro_torch.serve.frontend` -- :class:`QueryServer`, the
     high-throughput multi-client query front-end: shape-bucketed
     micro-batching over ``execute_many``, semantic request deduplication,
@@ -8,10 +12,8 @@
   * :mod:`~repro_torch.serve.masks` -- attention-mask composition over
     packed bitmaps, head-vote thresholds (K1 on the card) and KV-tile skip
     lists.
-
-The reference's model-decode slot engine (``serve/engine.py::ServeEngine``)
-waits for ``ROADMAP.md`` Queue 1 item 12 (the LM substrate).
 """
+from .engine import Request, ServeEngine
 from .frontend import Overloaded, QueryServer, shape_bucket
 
-__all__ = ["Overloaded", "QueryServer", "shape_bucket"]
+__all__ = ["Request", "ServeEngine", "Overloaded", "QueryServer", "shape_bucket"]

@@ -22,7 +22,10 @@ def test_port_imports_neither_jax_nor_reference():
         "repro_torch.serve.frontend, repro_torch.search, repro_torch.search.tokenize, "
         "repro_torch.search.similarity, repro_torch.search.window, repro_torch.dist, "
         "repro_torch.dist.query, repro_torch.persist.shards, repro_torch.serve.masks, "
-        "repro_torch.data, repro_torch.data.paper_datasets; "
+        "repro_torch.data, repro_torch.data.paper_datasets, repro_torch.configs, "
+        "repro_torch.configs.registry, repro_torch.models, repro_torch.models.layers, "
+        "repro_torch.models.rglru, repro_torch.models.rwkv6, repro_torch.models.model, "
+        "repro_torch.serve.engine, repro_torch.launch, repro_torch.launch.serve; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]; "
         "print('BAD', bad); sys.exit(1 if bad else 0)"
@@ -41,7 +44,9 @@ def test_sources_name_neither_jax_nor_reference():
     assert len(files) > 15
     for new in ("serve/frontend.py", "search/tokenize.py", "search/similarity.py",
                 "search/window.py", "dist/__init__.py", "dist/query.py", "persist/shards.py",
-                "serve/masks.py", "data/__init__.py", "data/paper_datasets.py"):
+                "serve/masks.py", "data/__init__.py", "data/paper_datasets.py",
+                "configs/base.py", "configs/registry.py", "models/layers.py", "models/rglru.py",
+                "models/rwkv6.py", "models/model.py", "serve/engine.py", "launch/serve.py"):
         assert os.path.join(SRC, "repro_torch", *new.split("/")) in files
     for path in files:
         with open(path) as f:
