@@ -149,6 +149,23 @@ What it does, one JSON object per line:
                        the card (logits within 1e-4); and the reduced
                        recurrentgemma, mixtral, rwkv6 and gemma2 batched
                        against alone.
+19. ``lm_train``    -- after ``lm_serve``: qwen3-1.7b at full width trained
+                       through ``repro_torch.train`` (float32, TF32 off, batch
+                       8 x 128 tokens from ``lm_batch``, the ``OptConfig`` of
+                       ``launch/train.py``) for 8 steps: loss and gradient
+                       norm a step, step ms (CUDA events), tokens/s, peak
+                       memory, the step's FLOP bound; 2 steps each with remat
+                       "full" and "dots" (peak memory, step ms); 2 steps at 2
+                       microbatches, each loss against the batch's loss in
+                       one piece; a profile of one step (kernels, device
+                       busy ms, the products' share).  Reduced: one step of
+                       each of the ten architectures on the card against
+                       the CPU from the same state; the reference's "loss falls" recipe; 3
+                       steps, a checkpoint, a restore and 3 more against 6
+                       straight (deterministic algorithms); and
+                       ``repro_torch.launch.train.main`` run, then resumed
+                       from its checkpoint.  Launch counts are read around
+                       the training path: it reaches neither kernel.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line (each kernel's ``launches`` from its main path's own window: K1's
@@ -167,6 +184,11 @@ import subprocess
 import sys
 import time
 
+# cuBLAS reads its workspace size once: the lm_train phase replays a run
+# under torch.use_deterministic_algorithms(True), which needs this set
+# before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -179,6 +201,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # two: 33.5e12 32-bit ALU instructions per second is the rate held against
 # the kernel's one bitwise operation per gate and word
 PEAK_ALU_OPS_PER_S = 33.5e12
+# 67 TFLOP/s float32 outside the tensor cores (the same data sheet): the
+# yardstick of a float32 training step with TF32 off
+PEAK_FP32_FLOPS = 67e12
 
 K1_SOURCE = "src/repro_torch/kernels/csrc/circuit_eval.cu"
 K1_REPLACES = "src/repro/kernels/threshold_ssum.py:88"
@@ -3438,6 +3463,340 @@ def phase_lm_serve(dev, smi: str, seed: int, cfg=None) -> None:
     emit("lm_serve", **report)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the LM training path (train, data, ckpt, ft, launch/train.py)
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 128, 8  # launch/train.py's batch and seq
+LM_TRAIN_LR = 1e-3  # launch/train.py's --lr
+# the loss of 2 microbatches (the mean of the halves' means) against the
+# batch's loss in one piece, same weights: float32 sums of 1,024 per-token
+# losses of about 12 in two groupings (cuBLAS may also pick other kernels
+# for 512 rows than for 1,024)
+LM_TRAIN_MICRO_ATOL = 1e-4
+# one step on the card against the CPU from the same state: float32, TF32
+# off, two libraries' summation orders.  Parameters after the update are
+# held to half a step: Adam's first step moves a weight by lr g/(|g| + eps),
+# about +-lr whatever |g|, so a gradient within rounding of zero can move
+# by another fraction of a step (tests/test_torch_train_step.py)
+LM_TRAIN_CARD_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4, "param_atol": 0.5 * LM_TRAIN_LR}
+
+
+def lm_train_bound(cfg, batch: int, seq: int) -> dict:
+    """The least time of one training step.  Operations: 6 x parameters x
+    tokens (forward and backward products of every weight, the tied
+    embedding's logits included) plus attention's scores and weighted sums
+    over the whole S x S square the model computes (masked, not skipped),
+    4 B S^2 H hd a layer forward, three times that with the backward; over
+    67e12 float32 FLOP/s.  Bytes: the update reads parameters, gradients,
+    m and v and writes parameters, m and v once; over 3.35e12 B/s."""
+    from repro_torch.models.model import _ATTN_KINDS, block_kinds
+
+    n = cfg.param_count()
+    tokens = batch * seq
+    attn_layers = sum(kind in _ATTN_KINDS for kind in block_kinds(cfg))
+    flops = 6 * n * tokens + 3 * 4 * batch * seq * seq * cfg.n_heads * cfg.head_dim * attn_layers
+    update_bytes = 7 * n * LM_BYTES
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = update_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"flops": flops, "update_bytes": update_bytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "peak": "67e12 float32 FLOP/s outside the tensor cores, 3.35e12 B/s "
+                    "(NVIDIA H100 SXM data sheet)"}
+
+
+def timed_steps(step_fn, state, batches: list) -> tuple:
+    """Run ``step_fn`` over ``batches``; CUDA events around each step, the
+    metrics read after it.  Returns (state, per-step metrics, step ms)."""
+    mets, events = [], []
+    for batch in batches:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step_fn(state, batch)
+        e1.record()
+        events.append((e0, e1))
+        mets.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    return state, mets, [a.elapsed_time(b) for a, b in events]
+
+
+def train_profile(step_fn, state, batch) -> tuple:
+    """``torch.profiler`` over one training step: kernels, device busy ms
+    beside the step's wall ms, the matrix products' share (cuBLAS kernels,
+    "gemm" in their names) and the eight kernels that took longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy_ms = sum(by_name.values())
+    gemm_ms = sum(v for k, v in by_name.items() if "gemm" in k.lower())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return state, {"loss": loss, "kernels": len(kernels), "device_busy_ms": busy_ms,
+                   "wall_ms": wall_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+                   "gemm_ms": gemm_ms, "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def ms_summary(ms: list) -> dict:
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms), "all": ms}
+
+
+def lm_train_full(dev, seed: int, cfg) -> dict:
+    """qwen3-1.7b at full width (``cfg``: another config, for a rehearsal):
+    8 steps, then remat, microbatches and one profiled step."""
+    import dataclasses
+
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.train import (
+        OptConfig,
+        TrainConfig,
+        init_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    total = LM_TRAIN_STEPS + 7
+    opt = OptConfig(peak_lr=LM_TRAIN_LR, warmup_steps=10, total_steps=total)
+    dc = DataConfig(vocab=cfg.vocab, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, seed=seed)
+    batches = [lm_batch(dc, i, dev) for i in range(total)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    check(n_params == cfg.param_count(), f"{n_params} parameters vs param_count_exact")
+    if cfg.name == LM_ARCH:  # the full config
+        check(n_params == LM_PARAMS, f"qwen3-1.7b has {n_params} parameters, not {LM_PARAMS}")
+    state_bytes = torch.cuda.memory_allocated()
+    # counts to 0 just before the training path is driven, read just after
+    zero_counts()
+    state, mets, ms = timed_steps(make_train_step(cfg, TrainConfig(opt=opt)), state,
+                                  batches[:LM_TRAIN_STEPS])
+    counts = read_counts("lm_train")
+    check(not any(counts.values()), f"the training path reaches no bitmap kernel: {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(mets):
+        check(all(np.isfinite(v) for v in m.values()), f"step {i}: metrics {m}")
+    bound = lm_train_bound(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    med = statistics.median(ms)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    report = {
+        "arch": cfg.name, "params": n_params, "dtype": "float32",
+        "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "batch": LM_TRAIN_BATCH,
+        "seq": LM_TRAIN_SEQ, "opt": dataclasses.asdict(opt), "init_s": init_s,
+        "state_bytes_after_init": state_bytes,
+        "loss": [m["loss"] for m in mets], "grad_norm": [m["grad_norm"] for m in mets],
+        "lr": [m["lr"] for m in mets], "step_ms": ms_summary(ms),
+        "tokens_per_s": tokens / (med / 1e3), "max_memory_allocated": peak,
+        "bound": bound, "share_of_bound": bound["bound_ms"] / med,
+        "achieved_flops_per_s": bound["flops"] / (med / 1e3), "launch_counts": counts,
+    }
+    step = LM_TRAIN_STEPS
+    for policy in ("full", "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        tc = TrainConfig(opt=opt, remat=True, remat_policy=policy)
+        state, rm, rms = timed_steps(make_train_step(cfg, tc), state, batches[step:step + 2])
+        step += 2
+        check(all(np.isfinite(v) for m in rm for v in m.values()), f"remat {policy}: {rm}")
+        report[f"remat_{policy}"] = {"loss": [m["loss"] for m in rm], "step_ms": ms_summary(rms),
+                                     "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    eval_step = make_eval_step(cfg, TrainConfig(opt=opt))
+    micro_step = make_train_step(cfg, TrainConfig(opt=opt, microbatches=2))
+    micro = []
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches[step:step + 2]:
+        whole = float(eval_step(state["params"], batch)["loss"])
+        state, mm, mms = timed_steps(micro_step, state, [batch])
+        err = abs(mm[0]["loss"] - whole)
+        check(err <= LM_TRAIN_MICRO_ATOL and np.isfinite(mm[0]["grad_norm"]),
+              f"2 microbatches: loss {mm[0]['loss']} vs {whole} in one piece")
+        micro.append({"loss": mm[0]["loss"], "one_piece_loss": whole, "abs_err": err,
+                      "step_ms": mms[0]})
+    report["microbatches_2"] = {"steps": micro, "tolerance": LM_TRAIN_MICRO_ATOL,
+                                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    state, report["profile"] = train_profile(make_train_step(cfg, TrainConfig(opt=opt)), state,
+                                             batches[step + 2])
+    check(np.isfinite(report["profile"]["loss"]), f"profiled step: {report['profile']}")
+    return report
+
+
+def train_state_to(state: dict, dev) -> dict:
+    """A copy of a train state on ``dev``."""
+    import copy
+
+    opt = state["opt"]
+    return {"params": copy.deepcopy(state["params"]).to(dev),
+            "opt": {"m": {k: v.to(dev, copy=True) for k, v in opt["m"].items()},
+                    "v": {k: v.to(dev, copy=True) for k, v in opt["v"].items()},
+                    "step": opt["step"].to(dev, copy=True)}}
+
+
+def lm_train_card_vs_cpu(dev, seed: int) -> list:
+    """One step of each reduced architecture on the card and on the CPU
+    from the same state and batch."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data import arch_batch
+    from repro_torch.train import OptConfig, TrainConfig, init_train_state, make_train_step
+
+    tc = TrainConfig(opt=OptConfig(peak_lr=LM_TRAIN_LR, warmup_steps=0, total_steps=100))
+    out = []
+    for arch in ARCHS:
+        cfg = get_config(arch, reduced=True)
+        cpu = init_train_state(cfg, seed, device="cpu")
+        card = train_state_to(cpu, dev)
+        step = make_train_step(cfg, tc)
+        cpu, mc = step(cpu, arch_batch(cfg, 4, 32, "train", seed, device="cpu"))
+        card, mg = step(card, arch_batch(cfg, 4, 32, "train", seed, device=dev))
+        torch.cuda.synchronize()
+        dp = max(float((a.detach().cpu() - b.detach()).abs().max())
+                 for a, b in zip(card["params"].parameters(), cpu["params"].parameters()))
+        row = {"arch": arch, "loss_cpu": float(mc["loss"]), "loss_card": float(mg["loss"]),
+               "aux_card": float(mg["aux_loss"]), "grad_norm_cpu": float(mc["grad_norm"]),
+               "grad_norm_card": float(mg["grad_norm"]), "max_param_diff": dp}
+        tol = LM_TRAIN_CARD_TOL
+        check(abs(row["loss_card"] - row["loss_cpu"]) <= tol["loss_rtol"] * abs(row["loss_cpu"])
+              and abs(row["grad_norm_card"] - row["grad_norm_cpu"])
+              <= tol["grad_norm_rtol"] * row["grad_norm_cpu"] and dp <= tol["param_atol"],
+              f"card vs CPU, one step: {row}")
+        out.append(row)
+    return out
+
+
+def lm_train_loss_falls(dev) -> dict:
+    """The reference's recipe (tests/test_train.py): qwen3 reduced, peak
+    3e-3, warmup 5, 15 steps of 8 x 64 tokens; the loss falls by 0.5."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.train import OptConfig, TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config(LM_ARCH, reduced=True)
+    step = make_train_step(cfg, TrainConfig(opt=OptConfig(peak_lr=3e-3, warmup_steps=5,
+                                                          total_steps=100)))
+    state = init_train_state(cfg, 0, device=dev)
+    dc = DataConfig(vocab=cfg.vocab, batch=8, seq=64)
+    losses = []
+    for i in range(15):
+        state, m = step(state, lm_batch(dc, i, dev))
+        losses.append(float(m["loss"]))
+    check(losses[-1] < losses[0] - 0.5, f"the loss did not fall by 0.5: {losses}")
+    return {"losses": losses}
+
+
+def lm_train_resume(dev, directory: str) -> dict:
+    """3 steps, a checkpoint, a restore into a fresh state, 3 more, against
+    6 straight: under deterministic algorithms both runs are the same
+    sequence of kernels, so they must agree to the reference's 1e-6."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.train import OptConfig, TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config(LM_ARCH, reduced=True)
+    step = make_train_step(cfg, TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=2,
+                                                          total_steps=10)))
+    dc = DataConfig(vocab=cfg.vocab, batch=4, seq=32)
+    torch.use_deterministic_algorithms(True)
+    try:
+        s = init_train_state(cfg, 4, device=dev)
+        for i in range(6):
+            s, _ = step(s, lm_batch(dc, i, dev))
+        straight = s
+        mgr = CheckpointManager(directory, async_save=True)
+        s = init_train_state(cfg, 4, device=dev)
+        for i in range(3):
+            s, _ = step(s, lm_batch(dc, i, dev))
+        t0 = time.perf_counter()
+        mgr.save(3, s)
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        del s  # crash
+        t0 = time.perf_counter()
+        s2 = mgr.restore(3, init_train_state(cfg, 4, device="meta"), device=dev)
+        restore_s = time.perf_counter() - t0
+        for i in range(3, 6):
+            s2, _ = step(s2, lm_batch(dc, i, dev))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    d = max(float((a - b).detach().abs().max())
+            for a, b in zip(straight["params"].parameters(), s2["params"].parameters()))
+    check(d < 1e-6 and int(s2["opt"]["step"]) == 6, f"resumed run differs by {d}")
+    return {"max_param_diff": d, "save_s": save_s, "restore_s": restore_s,
+            "deterministic_algorithms": True}
+
+
+def lm_train_launch(directory: str) -> dict:
+    """``repro_torch.launch.train.main`` on the card (its default device),
+    then again with more steps: the second resumes from the first's
+    newest checkpoint.  The driver's signal handlers are put back after."""
+    import contextlib
+    import io
+    import signal
+
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--arch", LM_ARCH, "--reduced", "--batch", "8", "--seq", "64",
+            "--ckpt-dir", directory, "--ckpt-every", "3"]
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    outs = []
+    try:
+        for steps in (6, 9):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                launch_train.main(argv + ["--steps", str(steps)])
+            outs.append((buf.getvalue().splitlines(), time.perf_counter() - t0))
+    finally:
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+    (first, s1), (second, s2) = outs
+    check(first[-1] == "[done]" and not any(ln.startswith("[resume]") for ln in first),
+          f"first run: {first}")
+    check(second[0] == f"[resume] restored step 6 from {directory}" and second[-1] == "[done]",
+          f"second run did not resume from step 6: {second}")
+    from repro_torch.ckpt import CheckpointManager
+
+    steps = CheckpointManager(directory).all_steps()
+    check(steps == [3, 6, 9], f"checkpoints {steps}")
+    return {"first": first, "second": second, "seconds": [s1, s2], "checkpoints": steps}
+
+
+def phase_lm_train(dev, smi: str, seed: int, cfg=None) -> None:
+    """qwen3-1.7b at full width (``cfg``: another config, for a rehearsal),
+    then the reduced checks."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    # full float32 products: TF32 would keep about three decimal digits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"card": smi}
+    t0 = time.perf_counter()
+    report["full"] = lm_train_full(dev, seed, cfg or get_config(LM_ARCH))
+    report["full_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["card_vs_cpu"] = {"tolerance": LM_TRAIN_CARD_TOL,
+                             "archs": lm_train_card_vs_cpu(dev, seed)}
+    report["card_vs_cpu_s"] = time.perf_counter() - t0
+    report["loss_falls"] = lm_train_loss_falls(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["resume"] = lm_train_resume(dev, os.path.join(tmp, "resume"))
+        report["launch_train"] = lm_train_launch(os.path.join(tmp, "launch"))
+    emit("lm_train", **report)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-log2", type=int, default=27,
@@ -3495,6 +3854,7 @@ def main() -> int:
     del stream
     timed("search", phase_search, dev, args.search_rows_log2, smi, args.seed)
     timed("lm_serve", phase_lm_serve, dev, smi, args.seed)
+    timed("lm_train", phase_lm_train, dev, smi, args.seed)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port must not import jax or the reference package")
 

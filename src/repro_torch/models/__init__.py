@@ -1,10 +1,9 @@
 """The model zoo of the port: the reference's ten architectures' forward,
-prefill and decode in PyTorch (``repro.models``' counterpart).
-
-Training (``chunked_ce_loss``, the optimizer and the train step) is the
-next slice of the port."""
+prefill, decode and training loss in PyTorch (``repro.models``'
+counterpart).  The optimizer and the train step are ``repro_torch.train``."""
 from .model import (
     LM,
+    chunked_ce_loss,
     decode_step,
     forward,
     init_cache,
@@ -14,6 +13,6 @@ from .model import (
 )
 
 __all__ = [
-    "LM", "decode_step", "forward", "init_cache", "init_params",
+    "LM", "chunked_ce_loss", "decode_step", "forward", "init_cache", "init_params",
     "logits_from_hidden", "param_count_exact",
 ]

@@ -11,6 +11,10 @@ caches).
 Block kinds: attn / local / bidir (attention + dense-or-MoE ffn),
 rec (RG-LRU + ffn), rwkv (time mix + channel mix).
 
+Training takes gradients through ``forward`` (optionally rematerialised:
+``remat`` / ``remat_policy``, the counterpart of the reference's
+``jax.checkpoint`` on its scan body) and :func:`chunked_ce_loss`.
+
 The functions keep the reference's names and arguments; ``params`` is the
 port's :class:`LM` module in place of the params pytree.
 :func:`repro_torch.convert.lm_params_from_reference` loads a reference
@@ -18,10 +22,16 @@ pytree into one.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -32,7 +42,7 @@ from . import rwkv6 as RW
 
 __all__ = [
     "LM", "Block", "block_kinds", "init_params", "param_count_exact", "init_cache",
-    "forward", "logits_from_hidden", "decode_step",
+    "forward", "logits_from_hidden", "chunked_ce_loss", "decode_step",
 ]
 
 _ATTN_KINDS = ("attn", "local", "bidir")
@@ -70,6 +80,7 @@ def block_kinds(cfg: ModelConfig) -> list[str]:
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, init: L.Init):
         super().__init__()
+        self.cfg = cfg  # the layer groups: checkpoints restack blocks by them
         d = cfg.d_model
         self.embed = init.normal((cfg.vocab_padded, d), 0.02)
         self.final_norm = init.full((d,), 1.0)
@@ -85,7 +96,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
     ``"meta"`` for shapes only), its weights drawn from a
     ``torch.Generator`` seeded with ``seed``.  The draws are not the
     reference's (``jax.random`` differs); the distributions are.  Weights
-    take no gradients: this slice serves."""
+    take no gradients (serving); ``repro_torch.train.init_train_state``
+    turns them on."""
     dev = resolve_device(device)
     return LM(cfg, L.Init(seed, dev, dtype))
 
@@ -211,13 +223,40 @@ def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict, dtype):
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
+# the outputs the "dots" policy keeps (``jax.checkpoint_policies.checkpoint_dots``
+# saves every dot_general's): matrix products; everything else is recomputed
+_DOT_OPS = frozenset({torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op.overloadpacket in _DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, policy: str):
+    """``body`` under activation checkpointing: ``"full"`` keeps only its
+    inputs, ``"dots"`` also the outputs of its matrix products."""
+    if policy == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat_policy must be 'full' or 'dots', not {policy!r}")
+
+
 def forward(params: LM, cfg: ModelConfig, batch: dict, *, mode: str = "train",
+            remat: bool = False, remat_policy: str = "full",
             compute_dtype=None, max_seq: int | None = None):
     """Full-sequence pass.  Returns (hidden [B,S,D], caches-or-None, aux).
 
     ``batch`` holds tensors on the model's device: ``tokens`` [B, S] int
     (plus ``patches`` / ``features`` for the stub front-ends, and
-    optionally ``positions`` [B, S])."""
+    optionally ``positions`` [B, S]).  With ``remat`` each repetition of a
+    layer group's pattern (the reference's scan body) is one checkpointed
+    region, recomputed in the backward pass (``remat_policy``: ``"full"``
+    or ``"dots"``)."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', not {mode!r}")
     x = _embed_inputs(params, cfg, batch, compute_dtype or params.embed.dtype)
@@ -226,12 +265,26 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *, mode: str = "train",
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     max_seq = max_seq or s
+
+    def body(x, aux, blocks):
+        caches = []
+        for bp in blocks:
+            x, kv, aux = _apply_block(x, bp, bp.kind, cfg, positions, aux=aux)
+            if mode == "prefill":
+                caches.append(_prep_train_cache(bp.kind, cfg, kv, max_seq))
+        return x, aux, caches
+
+    if remat:
+        body = _remat(body, remat_policy)
     caches = [] if mode == "prefill" else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp in params.blocks:
-        x, kv, aux_total = _apply_block(x, bp, bp.kind, cfg, positions, aux=aux_total)
-        if mode == "prefill":
-            caches.append(_prep_train_cache(bp.kind, cfg, kv, max_seq))
+    j = 0
+    for pattern, reps in cfg.layer_groups():
+        for _ in range(reps):
+            x, aux_total, cs = body(x, aux_total, params.blocks[j:j + len(pattern)])
+            j += len(pattern)
+            if mode == "prefill":
+                caches.extend(cs)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, caches, aux_total
 
@@ -250,6 +303,40 @@ def logits_from_hidden(params: LM, cfg: ModelConfig, h):
     logits = L._mm(h, w).float()
     logits = L.softcap(logits, cfg.logit_softcap)
     return _mask_pad_vocab(logits, cfg)
+
+
+def chunked_ce_loss(params: LM, cfg: ModelConfig, h, labels, mask=None, chunk: int = 1024):
+    """Cross-entropy over the vocab without materialising [B,S,V] at once.
+
+    The sequence is cut into ``min(chunk, S)``-long pieces (each over the
+    whole batch), then the remainder, as in the reference.  Every full
+    piece is checkpointed: only its inputs are kept for the backward pass,
+    not its float32 logits (the dominant memory term of the loss); the
+    remainder is not, as the reference's is not."""
+    b, s, d = h.shape
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    chunk = min(chunk, s)
+    n = s // chunk
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+
+    def chunk_loss(hc, lc, mc):
+        logits = L.softcap(L._mm(hc, w).float(), cfg.logit_softcap)
+        logits = _mask_pad_vocab(logits, cfg)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return torch.sum((logz - ll) * mc), torch.sum(mc)
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, n * chunk, chunk):
+        piece = slice(lo, lo + chunk)
+        l, c = checkpoint(chunk_loss, h[:, piece], labels[:, piece], mask[:, piece],
+                          use_reentrant=False)
+        tot, cnt = tot + l, cnt + c
+    if s > n * chunk:
+        l, c = chunk_loss(h[:, n * chunk:], labels[:, n * chunk:], mask[:, n * chunk:])
+        tot, cnt = tot + l, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
 
 
 def decode_step(params: LM, cfg: ModelConfig, caches, tokens, pos):

@@ -25,7 +25,10 @@ def test_port_imports_neither_jax_nor_reference():
         "repro_torch.data, repro_torch.data.paper_datasets, repro_torch.configs, "
         "repro_torch.configs.registry, repro_torch.models, repro_torch.models.layers, "
         "repro_torch.models.rglru, repro_torch.models.rwkv6, repro_torch.models.model, "
-        "repro_torch.serve.engine, repro_torch.launch, repro_torch.launch.serve; "
+        "repro_torch.serve.engine, repro_torch.launch, repro_torch.launch.serve, "
+        "repro_torch.train, repro_torch.train.optimizer, repro_torch.train.step, "
+        "repro_torch.data.pipeline, repro_torch.ckpt, repro_torch.ckpt.manager, "
+        "repro_torch.ft, repro_torch.ft.monitor, repro_torch.launch.train; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]; "
         "print('BAD', bad); sys.exit(1 if bad else 0)"
@@ -46,7 +49,10 @@ def test_sources_name_neither_jax_nor_reference():
                 "search/window.py", "dist/__init__.py", "dist/query.py", "persist/shards.py",
                 "serve/masks.py", "data/__init__.py", "data/paper_datasets.py",
                 "configs/base.py", "configs/registry.py", "models/layers.py", "models/rglru.py",
-                "models/rwkv6.py", "models/model.py", "serve/engine.py", "launch/serve.py"):
+                "models/rwkv6.py", "models/model.py", "serve/engine.py", "launch/serve.py",
+                "train/__init__.py", "train/optimizer.py", "train/step.py", "data/pipeline.py",
+                "ckpt/__init__.py", "ckpt/manager.py", "ft/__init__.py", "ft/monitor.py",
+                "launch/train.py"):
         assert os.path.join(SRC, "repro_torch", *new.split("/")) in files
     for path in files:
         with open(path) as f:
