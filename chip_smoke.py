@@ -166,6 +166,23 @@ What it does, one JSON object per line:
                        ``repro_torch.launch.train.main`` run, then resumed
                        from its checkpoint.  Launch counts are read around
                        the training path: it reaches neither kernel.
+20. ``lm_mesh``     -- after ``lm_train``: a one-rank process group (NCCL
+                       for the card) and a 1 x 1 ``DeviceMesh``, destroyed at
+                       the end.  qwen3-1.7b at full width (float32, TF32
+                       off, batch 8 x 128 from ``lm_batch``, the
+                       ``OptConfig`` of ``launch/train.py``): 4 steps of the
+                       no-mesh path and 4 of the mesh path (state placed by
+                       ``state_shardings``, batches by ``batch_shardings``,
+                       the step under ``use_rules``) from the same initial
+                       state, losses, grad norms and weights compared, step
+                       ms, tokens/s, peak memory and a profiled step of
+                       each; granite-moe at full width, 2 x 128 tokens
+                       under the rules (the MoE mesh branch) against the
+                       no-rules forward; mixtral reduced (token chunks)
+                       under the rules, card against CPU;
+                       ``launch.train.main`` on the mesh path, then resumed
+                       through ``restore(..., shardings=)``.  Launch counts
+                       are read around the phase: it reaches neither kernel.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line (each kernel's ``launches`` from its main path's own window: K1's
@@ -3797,6 +3814,271 @@ def phase_lm_train(dev, smi: str, seed: int, cfg=None) -> None:
     emit("lm_train", **report)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the mesh half of the LM substrate on a 1 x 1 mesh (dist/context,
+# launch/mesh, launch/sharding, the mesh branches of models/layers)
+# ---------------------------------------------------------------------------
+
+LM_MESH_STEPS = 4
+# granite-moe at full width, the MoE mesh branch on one rank against the
+# no-rules forward: one rank routes all tokens, so the dispatch is the same
+# and only the collectives (a one-rank all-reduce) stand between them
+LM_MESH_MOE_TOL = {"atol": 1e-5, "rtol": 1e-5}
+LM_MESH_MOE_BATCH, LM_MESH_MOE_SEQ = 2, 128
+LM_MESH_LOSS_RTOL = 1e-6  # the mesh step's loss against the no-mesh step's
+# after the steps, weights of the two paths "the same" within this, and the
+# share of weights allowed to differ by more (the tied embedding's gradient
+# sums its two uses in another order under DTensor: last-bit differences)
+LM_MESH_PARAM_SAME, LM_MESH_PARAM_SHARE = 1e-6, 1e-3
+
+
+def under_rules(step_fn, rules):
+    """``step_fn`` run under ``use_rules(rules)`` (the mesh path's step)."""
+    from repro_torch.dist.context import use_rules
+
+    def run(state, batch):
+        with use_rules(rules):
+            return step_fn(state, batch)
+
+    return run
+
+
+def lm_mesh_train(dev, mesh, seed: int, cfg) -> dict:
+    """4 steps of qwen3-1.7b at full width through the no-mesh path,
+    then 4 through the mesh path (state and batches DTensors on the 1 x 1
+    mesh, the step under ``use_rules``) from the same initial state (the
+    same seed on the same card); one profiled step of each."""
+    import dataclasses
+
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.dist.context import ShardingRules
+    from repro_torch.launch.sharding import batch_shardings, place, state_bytes, state_shardings
+    from repro_torch.train import OptConfig, TrainConfig, init_train_state, make_train_step
+
+    opt = OptConfig(peak_lr=LM_TRAIN_LR, warmup_steps=10, total_steps=LM_MESH_STEPS + 1)
+    dc = DataConfig(vocab=cfg.vocab, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, seed=seed)
+    batches = [lm_batch(dc, i, dev) for i in range(LM_MESH_STEPS + 1)]
+    step_fn = make_train_step(cfg, TrainConfig(opt=opt))
+    bound = lm_train_bound(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    report = {"arch": cfg.name, "dtype": "float32", "batch": LM_TRAIN_BATCH,
+              "seq": LM_TRAIN_SEQ, "opt": dataclasses.asdict(opt), "bound": bound}
+    rules = ShardingRules(mesh, batch_shardable=LM_TRAIN_BATCH % mesh.size() == 0)
+    final = {}
+    for path in ("no_mesh", "mesh"):
+        torch.cuda.empty_cache()
+        state = init_train_state(cfg, seed, device=dev)
+        checksum = float(sum(p.detach().double().sum() for p in state["params"].parameters()))
+        run_batches = batches
+        if path == "mesh":
+            state = place(state, state_shardings(state, mesh, cfg))
+            b_sh = batch_shardings(batches[0], mesh, LM_TRAIN_BATCH)
+            run_batches = [place(b, b_sh) for b in batches]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state_b = state_bytes(state)
+        fn = under_rules(step_fn, rules) if path == "mesh" else step_fn
+        state, mets, ms = timed_steps(fn, state, run_batches[:LM_MESH_STEPS])
+        peak = torch.cuda.max_memory_allocated()
+        params = dict(state["params"].named_parameters())
+        max_param_diff = moved = None
+        if path == "no_mesh":
+            final = {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
+        else:
+            max_param_diff, moved = 0.0, 0
+            for k, v in params.items():
+                d = (v.full_tensor().detach() - final[k].to(dev)).abs()
+                max_param_diff = max(max_param_diff, float(d.max()))
+                moved += int((d > LM_MESH_PARAM_SAME).sum())
+        state, prof = train_profile(fn, state, run_batches[LM_MESH_STEPS])
+        med = statistics.median(ms)
+        report[path] = {
+            "initial_param_checksum": checksum, "state_bytes": state_b,
+            "loss": [m["loss"] for m in mets], "grad_norm": [m["grad_norm"] for m in mets],
+            "lr": [m["lr"] for m in mets],
+            "step_ms": ms_summary(ms), "tokens_per_s": tokens / (med / 1e3),
+            "share_of_bound": bound["bound_ms"] / med, "max_memory_allocated": peak,
+            "profile": prof, "max_param_diff_vs_no_mesh": max_param_diff,
+            "params_differing_by_more_than_1e-6": moved,
+            "param_types": sorted({type(p).__name__ for p in params.values()}),
+        }
+        del state, params
+    a, b = report["no_mesh"], report["mesh"]
+    check(a["initial_param_checksum"] == b["initial_param_checksum"],
+          "the two paths did not start from the same state")
+    check(b["param_types"] == ["DTensor"] and a["param_types"] == ["Parameter"],
+          f"parameter types {a['param_types']} / {b['param_types']}")
+    rel = [abs(x - y) / abs(y) for x, y in zip(b["loss"], a["loss"])]
+    report["loss_max_rel_diff"] = max(rel)
+    report["grad_norm_max_rel_diff"] = max(abs(x - y) / abs(y)
+                                           for x, y in zip(b["grad_norm"], a["grad_norm"]))
+    report["step_ms_ratio_mesh_over_no_mesh"] = b["step_ms"]["median"] / a["step_ms"]["median"]
+    check(max(rel) <= LM_MESH_LOSS_RTOL and all(np.isfinite(b["loss"] + b["grad_norm"])),
+          f"mesh losses {b['loss']} vs no-mesh {a['loss']}")
+    # Adam moves a weight by about lr_t a step whatever its gradient, so a
+    # gradient within rounding of zero may go either way: the two runs may
+    # part by up to the rates summed, on a few weights
+    n_params = sum(p.numel() for p in init_train_state(cfg, device="meta")["params"].parameters())
+    check(b["max_param_diff_vs_no_mesh"] <= sum(a["lr"])
+          and b["params_differing_by_more_than_1e-6"] <= LM_MESH_PARAM_SHARE * n_params,
+          f"mesh parameters differ by {b['max_param_diff_vs_no_mesh']} "
+          f"({b['params_differing_by_more_than_1e-6']} of {n_params} by more than 1e-6)")
+    return report
+
+
+def lm_mesh_moe(dev, mesh, seed: int, cfg) -> dict:
+    """granite-moe at full width: one forward of 2 x 128 tokens without
+    rules, then the same weights placed on the 1 x 1 mesh and the forward
+    under the rules (the MoE mesh branch, experts TP-sharded over 'model'
+    with a psum, since 512 ff columns over one rank is not under 128)."""
+    from repro_torch.data import arch_batch
+    from repro_torch.dist.context import ShardingRules, use_rules
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.launch.sharding import batch_shardings, param_shardings, place
+    from repro_torch.models import forward, init_params
+
+    model = init_params(cfg, seed, device=dev)
+    batch = arch_batch(cfg, LM_MESH_MOE_BATCH, LM_MESH_MOE_SEQ, "train", seed, device=dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        h0, _, aux0 = forward(model, cfg, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        place(model, param_shardings(model, mesh, cfg))
+        with use_rules(ShardingRules(mesh)):
+            t0 = time.perf_counter()
+            h1, _, aux1 = forward(model, cfg, place(batch, batch_shardings(batch, mesh,
+                                                                           LM_MESH_MOE_BATCH)))
+            h1, aux1 = h1.full_tensor(), aux1.full_tensor()
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+    err = float((h1 - h0).abs().max())
+    scale = float(h0.abs().max())
+    out = {"arch": cfg.name, "params": cfg.param_count(), "tokens": [LM_MESH_MOE_BATCH,
+                                                                     LM_MESH_MOE_SEQ],
+           "moe_d_ff": cfg.moe_d_ff,
+           "experts_tp_sharded": cfg.moe_d_ff // mesh_axis_sizes(mesh)["model"] >= 128,
+           "h_max_abs_err": err, "h_max_abs": scale, "aux_plain": float(aux0),
+           "aux_mesh": float(aux1), "tolerance": LM_MESH_MOE_TOL,
+           "forward_s_plain": plain_s, "forward_s_mesh_first_call": mesh_s}
+    tol = LM_MESH_MOE_TOL
+    check(bool(torch.isfinite(h1).all()) and err <= tol["atol"] + tol["rtol"] * scale
+          and abs(float(aux1) - float(aux0)) <= tol["atol"] + tol["rtol"] * abs(float(aux0)),
+          f"granite-moe under the rules vs without: {out}")
+    return out
+
+
+def lm_mesh_mixtral(dev, mesh, cpu_mesh, seed: int) -> dict:
+    """mixtral reduced (``moe_token_chunk=2``: capacity per token chunk under
+    the rules) on the card's 1 x 1 mesh against the CPU's, same weights."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import arch_batch
+    from repro_torch.dist.context import ShardingRules, use_rules
+    from repro_torch.launch.sharding import batch_shardings, param_shardings, place
+    from repro_torch.models import forward, init_params
+
+    cfg = get_config("mixtral-8x22b", reduced=True)
+    cpu_model = init_params(cfg, seed, device="cpu")
+    plain_h, _, _ = forward(cpu_model, cfg, arch_batch(cfg, 4, 32, "train", seed, device="cpu"))
+    out = {"arch": cfg.name, "moe_token_chunk": cfg.moe_token_chunk}
+    for name, m, d in (("cpu", cpu_mesh, "cpu"), ("card", mesh, dev)):
+        model = place(copy.deepcopy(cpu_model).to(d), param_shardings(cpu_model, m, cfg))
+        batch = arch_batch(cfg, 4, 32, "train", seed, device=d)
+        with use_rules(ShardingRules(m)), torch.no_grad():
+            h, _, aux = forward(model, cfg, place(batch, batch_shardings(batch, m, 4)))
+            out[name] = (h.full_tensor().cpu(), float(aux.full_tensor()))
+    (hc, ac), (hg, ag) = out.pop("cpu"), out.pop("card")
+    out.update(h_max_abs_err=float((hg - hc).abs().max()), aux_cpu=ac, aux_card=ag,
+               tolerance=LM_CPU_CARD_TOL,
+               rules_vs_no_rules_max_abs=float((hc - plain_h).abs().max()))
+    tol = LM_CPU_CARD_TOL
+    check(torch.allclose(hg, hc, **tol) and abs(ag - ac) <= tol["atol"] + tol["rtol"] * abs(ac),
+          f"mixtral reduced under the rules, card vs CPU: {out}")
+    return out
+
+
+def lm_mesh_launch(directory: str) -> dict:
+    """``launch.train.main`` on the card's mesh path (the phase's group),
+    reduced, 4 steps with checkpoints, then resumed to 6 through
+    ``restore(..., shardings=)``."""
+    import contextlib
+    import io
+    import signal
+
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--arch", LM_ARCH, "--reduced", "--batch", "8", "--seq", "64",
+            "--ckpt-dir", directory, "--ckpt-every", "2"]
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    outs = []
+    try:
+        for steps in (4, 6):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                launch_train.main(argv + ["--steps", str(steps)])
+            outs.append((buf.getvalue().splitlines(), time.perf_counter() - t0))
+    finally:
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+    (first, s1), (second, s2) = outs
+    check(first[-1] == "[done]" and not any(ln.startswith("[resume]") for ln in first),
+          f"first run: {first}")
+    check(second[0] == f"[resume] restored step 4 from {directory}" and second[-1] == "[done]",
+          f"second run did not resume from step 4: {second}")
+    return {"first": first, "second": second, "seconds": [s1, s2]}
+
+
+def phase_lm_mesh(dev, smi: str, seed: int, cfg=None) -> None:
+    """The mesh path on one card: a one-rank group (NCCL for the card) and
+    a 1 x 1 mesh, qwen3-1.7b at full width (``cfg``: another config, for a
+    rehearsal) through the mesh step against the no-mesh step, granite-moe
+    at full width, mixtral reduced card vs CPU, ``launch.train`` resumed;
+    K1 / K2 launches read around the whole phase (it reaches neither)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(not dist.is_initialized(), "a process group is left from an earlier phase")
+    report = {"card": smi}
+    zero_counts()
+    try:
+        mesh = make_host_mesh(device=dev)  # starts the one-rank group
+        cpu_mesh = make_host_mesh(device="cpu")
+        report["group"] = {"backend": str(dist.get_backend()), "world": dist.get_world_size(),
+                           "mesh": mesh_axis_sizes(mesh), "device_type": mesh.device_type}
+        check(dist.get_world_size() == 1 and mesh_axis_sizes(mesh) == {"data": 1, "model": 1}
+              and (dev.type != "cuda" or "nccl" in report["group"]["backend"]),
+              f"the 1 x 1 mesh: {report['group']}")
+        t0 = time.perf_counter()
+        report["train"] = lm_mesh_train(dev, mesh, seed, cfg or get_config(LM_ARCH))
+        report["train_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["moe"] = lm_mesh_moe(dev, mesh, seed, get_config("granite-moe-1b-a400m")
+                                    if cfg is None else get_config("granite-moe-1b-a400m",
+                                                                   reduced=True))
+        report["moe_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        report["mixtral"] = lm_mesh_mixtral(dev, mesh, cpu_mesh, seed)
+        with tempfile.TemporaryDirectory() as tmp:
+            report["launch_train"] = lm_mesh_launch(os.path.join(tmp, "launch"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    counts = read_counts("lm_mesh")
+    report["launch_counts"] = counts
+    check(not any(counts.values()), f"the mesh path reaches no bitmap kernel: {counts}")
+    emit("lm_mesh", **report)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-log2", type=int, default=27,
@@ -3855,6 +4137,7 @@ def main() -> int:
     timed("search", phase_search, dev, args.search_rows_log2, smi, args.seed)
     timed("lm_serve", phase_lm_serve, dev, smi, args.seed)
     timed("lm_train", phase_lm_train, dev, smi, args.seed)
+    timed("lm_mesh", phase_lm_mesh, dev, smi, args.seed)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port must not import jax or the reference package")
 

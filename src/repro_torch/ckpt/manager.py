@@ -16,6 +16,13 @@ tuple of tensors or arrays.  The host copy is taken in the caller's thread
 (``Tensor.cpu()`` waits for the card); the files are written on a
 background thread when ``async_save`` (``wait()`` joins it before the next
 save).  Retention keeps the newest ``keep``.
+
+Elastic: a state sharded over a mesh (DTensors) is gathered to its full
+arrays on every rank, synchronously in ``save`` (each leaf's gather is a
+collective); only rank 0 writes, the same ``.npz`` an unsharded save of
+that state writes, and ``wait()`` then holds every rank at a barrier until
+the files are published.  ``restore(..., shardings=)`` loads the full
+arrays and places them on the *current* mesh, whatever mesh wrote them.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.convert import _host, train_state_from_reference, train_state_to_reference
 from repro_torch.device import resolve_device
@@ -77,6 +86,16 @@ def _nest(flat: dict):
     return lists(root)
 
 
+def _has_dtensor(tree) -> bool:
+    if isinstance(tree, torch.nn.Module):
+        return any(isinstance(p, DTensor) for p in tree.parameters())
+    if isinstance(tree, dict):
+        return any(_has_dtensor(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_dtensor(v) for v in tree)
+    return isinstance(tree, DTensor)
+
+
 def _rebuild(template, flat: dict, dev, prefix: tuple = ()):
     """``template``'s structure with every leaf read from ``flat`` onto ``dev``."""
     if isinstance(template, dict):
@@ -97,14 +116,18 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
         self._thread: threading.Thread | None = None
+        self._collective = False  # the last save gathered a sharded state
         os.makedirs(directory, exist_ok=True)
 
     # -- write ---------------------------------------------------------
     def save(self, step: int, state, extra: dict | None = None):
         self.wait()
+        self._collective = _has_dtensor(state)
         tree = train_state_to_reference(state, state["params"].cfg) if _is_train_state(state) \
             else state
         host = _flatten(tree)
+        if self._collective and dist.get_rank() != 0:
+            return  # rank 0 writes the gathered arrays
 
         def _write():
             tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
@@ -134,6 +157,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._collective:
+            self._collective = False
+            dist.barrier()  # every rank waits for rank 0's files
 
     def _gc(self):
         steps = self.all_steps()
@@ -153,18 +179,28 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, template, device=None):
+    def restore(self, step: int, template, shardings=None, device=None):
         """A new state shaped like ``template`` on ``device`` (default: the
         CUDA card).  For a train state the template gives the model's
-        config and dtype only (it may live on the meta device)."""
-        dev = resolve_device(device)
+        config and dtype only (it may live on the meta device).  With
+        ``shardings`` (shaped like the state, e.g. ``state_shardings`` of
+        the current mesh) every rank reads the full arrays and keeps its
+        shards, as DTensors on that mesh; ``device`` is not used."""
         path = os.path.join(self.dir, f"step_{step:08d}", "arrays.npz")
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
         if _is_train_state(template):
             model = template["params"]
-            return train_state_from_reference(_nest(flat), model.cfg, dev, model.embed.dtype)
-        return _rebuild(template, flat, dev)
+            if shardings is not None:
+                return train_state_from_reference(_nest(flat), model.cfg,
+                                                  dtype=model.embed.dtype, shardings=shardings)
+            return train_state_from_reference(_nest(flat), model.cfg, resolve_device(device),
+                                              model.embed.dtype)
+        if shardings is not None:
+            from repro_torch.launch.sharding import place
+
+            return place(_rebuild(template, flat, torch.device("cpu")), shardings)
+        return _rebuild(template, flat, resolve_device(device))
 
     def manifest(self, step: int) -> dict:
         with open(os.path.join(self.dir, f"step_{step:08d}", "manifest.json")) as f:

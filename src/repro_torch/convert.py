@@ -98,7 +98,13 @@ def _load_named(named: dict, tree, layout: dict, what: str) -> None:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """A copy of a tensor as a host numpy array (bfloat16, which numpy
-    lacks, as float32); never a view of a CPU tensor's memory."""
+    lacks, as float32); never a view of a CPU tensor's memory.  A DTensor
+    is gathered first (``full_tensor``: a collective, every rank of its
+    mesh must call it)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -141,11 +147,19 @@ def lm_params_from_reference(np_params: dict, cfg, device=None, dtype=torch.floa
     return model
 
 
-def train_state_from_reference(np_state: dict, cfg, device=None, dtype=torch.float32) -> dict:
+def train_state_from_reference(np_state: dict, cfg, device=None, dtype=torch.float32,
+                               shardings=None) -> dict:
     """The reference's train state (``{"params", "opt": {"m", "v", "step"}}``
     as numpy arrays) as the port's: the model with gradients on, ``m`` and
     ``v`` float32 keyed by parameter name, ``step`` a 0-d int32 tensor, all
-    on ``device`` (default: the CUDA card)."""
+    on ``device`` (default: the CUDA card).  With ``shardings`` (the port's
+    ``launch.sharding.state_shardings``) the full arrays are staged on the
+    host and every rank keeps its shards, as DTensors on the shardings'
+    mesh; ``device`` is not used."""
+    if shardings is not None:
+        from repro_torch.launch.sharding import place
+
+        return place(train_state_from_reference(np_state, cfg, "cpu", dtype), shardings)
     dev = resolve_device(device)
     model = lm_params_from_reference(np_state["params"], cfg, dev, dtype)
     model.requires_grad_(True)
@@ -161,7 +175,8 @@ def train_state_from_reference(np_state: dict, cfg, device=None, dtype=torch.flo
 
 def train_state_to_reference(state: dict, cfg) -> dict:
     """The port's train state in the reference's pytree layout, as numpy
-    arrays (``step`` a 0-d int32 array)."""
+    arrays (``step`` a 0-d int32 array).  A sharded state is gathered to
+    its full arrays (on every rank: each leaf's gather is a collective)."""
     layout = _reference_layout(cfg)
     opt = state["opt"]
     return {

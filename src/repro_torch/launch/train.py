@@ -1,13 +1,16 @@
-"""Train driver: checkpointed, fault-tolerant (the port of
-``repro.launch.train``).
+"""Production training launcher: sharded, checkpointed, fault-tolerant (the
+port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \
         --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
 
-It runs on the CUDA card unless ``--device`` names another device, on one
-device: the reference's single-host run (a 1 x 1 mesh, every sharding
-replicated).  ``--production-mesh`` is refused until the port has meshes.
+It runs on the CUDA card (NCCL) unless ``--device`` names another device
+(``cpu``: ``gloo``).  Run as one process it is the reference's single-host
+run: ``make_host_mesh()`` is the 1 x 1 mesh over a one-rank group, and the
+state and batches are DTensors on it.  Launched as several ranks (a
+process group initialised first), the host mesh spans them.
 Exercised end to end:
+  * mesh + FSDP/TP shardings from launch/sharding.py
   * auto-resume from the newest checkpoint (crash recovery)
   * deterministic data stream keyed by (seed, step) -- restart replays
   * async checkpointing every --ckpt-every steps, atomic publish
@@ -20,13 +23,17 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, lm_batch
-from repro_torch.device import resolve_device
+from repro_torch.dist.context import ShardingRules, use_rules
 from repro_torch.ft import PreemptionHandler, StragglerMonitor
 from repro_torch.train import OptConfig, TrainConfig, init_train_state, make_train_step
+
+from .mesh import make_host_mesh, make_production_mesh
+from .sharding import batch_shardings, place, state_shardings
 
 
 def main(argv=None):
@@ -48,11 +55,20 @@ def main(argv=None):
                     help="torch device to run on (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise SystemExit("--production-mesh: the 256-device mesh comes with the port's mesh "
-                         "slice (dist/context.py, launch/mesh.py); this driver runs on one device")
     cfg = get_config(args.arch, reduced=args.reduced)
-    dev = resolve_device(args.device)
+    owns_group = not dist.is_initialized()  # a one-rank group the mesh starts is ours
+    mesh = (make_production_mesh(device=args.device) if args.production_mesh
+            else make_host_mesh(device=args.device))
+    try:
+        _train(args, cfg, mesh)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+    print("[done]")
+
+
+def _train(args, cfg, mesh):
+    rules = ShardingRules(mesh, batch_shardable=args.batch % mesh.size() == 0)
     dtype = getattr(torch, args.param_dtype)
     tc = TrainConfig(
         opt=OptConfig(peak_lr=args.lr, warmup_steps=10, total_steps=args.steps),
@@ -62,49 +78,53 @@ def main(argv=None):
     dc = DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq, seed=args.seed)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
 
-    start = 0
-    if mgr and mgr.latest_step() is not None:
-        start = mgr.latest_step()
-        # the template only names the config and dtype: it holds no memory
-        state = mgr.restore(start, init_train_state(cfg, args.seed, dtype, "meta"), dev)
-        print(f"[resume] restored step {start} from {args.ckpt_dir}")
-    else:
-        state = init_train_state(cfg, args.seed, dtype, dev)
+    with use_rules(rules):
+        # the shardings need shapes only: a template on the meta device
+        st_sh = state_shardings(init_train_state(cfg, args.seed, dtype, "meta"), mesh, cfg)
+        start = 0
+        if mgr and mgr.latest_step() is not None:
+            start = mgr.latest_step()
+            # the template only names the config and dtype: it holds no memory
+            state = mgr.restore(start, init_train_state(cfg, args.seed, dtype, "meta"), st_sh)
+            print(f"[resume] restored step {start} from {args.ckpt_dir}")
+        else:
+            # every rank draws the same full state from the seed, keeps its shards
+            state = place(init_train_state(cfg, args.seed, dtype, "cpu"), st_sh)
+        b_sh = batch_shardings(lm_batch(dc, 0, "cpu"), mesh, args.batch)
 
-    step_fn = make_train_step(cfg, tc)
-    monitor = StragglerMonitor()
-    preempt = PreemptionHandler()
-    preempt.install()
+        step_fn = make_train_step(cfg, tc)
+        monitor = StragglerMonitor()
+        preempt = PreemptionHandler()
+        preempt.install()
 
-    for step in range(start, args.steps):
-        t0 = time.time()
-        batch = lm_batch(dc, step, dev)
-        state, metrics = step_fn(state, batch)
-        metrics = {k: float(v) for k, v in metrics.items()}
-        dt = time.time() - t0
-        ev = monitor.record(step, dt)
-        if ev:
-            print(f"[straggler] step {ev.step}: {ev.ratio:.1f}x EWMA -> mitigation hook")
-        if step % 10 == 0 or step == args.steps - 1:
-            print(
-                f"step {step:5d} loss {metrics['loss']:.4f} "
-                f"gnorm {metrics['grad_norm']:.3f} lr {metrics['lr']:.2e} {dt * 1e3:.0f} ms"
-            )
-        if mgr and (step + 1) % args.ckpt_every == 0:
-            mgr.save(step + 1, state)
-        if preempt.should_stop:
-            print(f"[preempt] signal received; checkpointing at step {step + 1}")
-            if mgr:
-                mgr.wait()
+        for step in range(start, args.steps):
+            t0 = time.time()
+            batch = place(lm_batch(dc, step, "cpu"), b_sh)
+            state, metrics = step_fn(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            dt = time.time() - t0
+            ev = monitor.record(step, dt)
+            if ev:
+                print(f"[straggler] step {ev.step}: {ev.ratio:.1f}x EWMA -> mitigation hook")
+            if step % 10 == 0 or step == args.steps - 1:
+                print(
+                    f"step {step:5d} loss {metrics['loss']:.4f} "
+                    f"gnorm {metrics['grad_norm']:.3f} lr {metrics['lr']:.2e} {dt * 1e3:.0f} ms"
+                )
+            if mgr and (step + 1) % args.ckpt_every == 0:
                 mgr.save(step + 1, state)
-                mgr.wait()
-            break
-    if mgr:
-        mgr.wait()
-        if (args.steps % args.ckpt_every) and not preempt.should_stop:
-            mgr.save(args.steps, state)
+            if preempt.should_stop:
+                print(f"[preempt] signal received; checkpointing at step {step + 1}")
+                if mgr:
+                    mgr.wait()
+                    mgr.save(step + 1, state)
+                    mgr.wait()
+                break
+        if mgr:
             mgr.wait()
-    print("[done]")
+            if (args.steps % args.ckpt_every) and not preempt.should_stop:
+                mgr.save(args.steps, state)
+                mgr.wait()
 
 
 if __name__ == "__main__":

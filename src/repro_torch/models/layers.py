@@ -5,10 +5,16 @@ local sort-based dispatch.
 The port of ``repro.models.layers``.  Each function takes the block's
 ``nn.Module`` where the reference takes its params dict; the modules'
 parameters carry the reference's key names (``p.wq`` is ``p["wq"]``), so
-the code reads like the reference's.  Only the reference's unsharded
-branches are here: the mesh branches of ``embedding_lookup`` and ``moe``
-and the head-repeat of ``attention`` under tensor parallelism come with
-the port's ``dist/context.py``.
+the code reads like the reference's.  Sharding is expressed through
+``repro_torch.dist.context.constrain`` with logical axis names, as in the
+reference.  Under sharding rules three branches run per rank, as the
+reference's ``shard_map`` does: the vocab-parallel ``embedding_lookup``,
+the MoE dispatch (tokens local to their rank, expert weights TP-sharded on
+the ff dim, partial down-projections summed over TP), and the head-repeat
+of ``attention`` when the KV heads do not divide the TP degree.  Each takes
+the DTensors' local shards (``_local``), computes on plain tensors with
+``dist.context.psum`` for the reference's ``psum``, and wraps its result
+back into a DTensor (``_global``).
 
 Matrix products are ``torch.matmul`` / ``einsum`` (the reference leaves
 them to XLA; no Pallas here).  Where ``jnp`` promotes mixed float32 /
@@ -22,14 +28,77 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.context import (
+    axis_size,
+    constrain,
+    get_rules,
+    mesh_sizes,
+    psum,
+    spec_placements,
+)
 
 __all__ = [
     "NEG_INF", "BLOCKED_ATTN_THRESHOLD", "Init", "Attention", "MLP", "MoE",
     "rms_norm", "softcap", "act_fn", "rope", "attention", "embedding_lookup",
     "mlp", "moe_route", "moe_dispatch_local", "moe",
 ]
+
+
+# ---------------------------------------------------------------------------
+# per-rank blocks (the reference's shard_map)
+# ---------------------------------------------------------------------------
+
+
+# Gradients follow ``shard_map``'s transpose: an output replicated over
+# mesh axes passes each rank its gradient divided by their size; an input
+# replicated over an axis gets the sum of the ranks' gradients (Partial);
+# a psum's gradient is a psum.  Ranks that compute alike (tokens replicated
+# over 'model') then add up to the gradient once, ranks that compute apart
+# (their own tokens, their own ff slice) to the sum of their parts.
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def _local(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` (the ``in_specs`` of a
+    ``shard_map``): a DTensor is redistributed to the spec's placements; a
+    plain tensor is taken as replicated.  Its gradient is partial over the
+    axes the spec replicates it on."""
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    placements = spec_placements(mesh, spec)
+    grads = [Partial() if p.is_replicate() else p for p in placements]
+    return x.redistribute(mesh, placements).to_local(grad_placements=grads)
+
+
+def _global(x: torch.Tensor, mesh, spec):
+    """A rank's block as the DTensor it is a block of (``out_specs``)."""
+    placements = spec_placements(mesh, spec)
+    shared = math.prod(mesh.size(i) for i, p in enumerate(placements) if p.is_replicate())
+    return DTensor.from_local(_ScaleGrad.apply(x, 1.0 / shared), mesh, placements,
+                              run_check=False)
+
+
+def _batch_spec(rules, b: int):
+    """The batch axes that shard a leading dimension of ``b``, or ``None``."""
+    sizes = mesh_sizes(rules.mesh)
+    batch_axes = tuple(a for a in rules.batch_axes if a in sizes)
+    dp = math.prod(sizes[a] for a in batch_axes) if batch_axes else 1
+    return batch_axes if (batch_axes and b % dp == 0) else None
+
 
 NEG_INF = -1e30
 
@@ -239,6 +308,18 @@ def _sdpa_blocked(q, k, v, pos_q, pos_kv, kind, window, cap: float, kv_block: in
     return out.permute(0, 3, 1, 2, 4).to(v.dtype)  # [B,Sq,Hkv,G,hd]
 
 
+def _split_heads(x, n: int, hd: int):
+    """``x [B, S, n * hd]`` as ``[B, S, n, hd]``.  A DTensor whose feature
+    dim is split over more ranks than divide ``n`` is gathered on that dim
+    first: DTensor refuses to split heads unevenly, where GSPMD reshards."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        ranks = math.prod(mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(2))
+        if n % ranks:
+            x = x.redistribute(mesh, [Replicate() if p.is_shard(2) else p for p in x.placements])
+    return x.reshape(x.shape[0], x.shape[1], n, hd)
+
+
 def attention(x, p: Attention, cfg: ModelConfig, kind: str, positions, kv_cache=None,
               cache_pos=None):
     """Self-attention sub-block.  Returns (out, new_kv) where new_kv is the
@@ -253,16 +334,32 @@ def attention(x, p: Attention, cfg: ModelConfig, kind: str, positions, kv_cache=
     (per-slot positions: its scatter)."""
     b, s, d = x.shape
     h = rms_norm(x, p.ln, cfg.norm_eps)
-    q = _mm(h, p.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = _mm(h, p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = _mm(h, p.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(_mm(h, p.wq), cfg.n_heads, cfg.head_dim)
+    k = _split_heads(_mm(h, p.wk), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(_mm(h, p.wv), cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, s, cfg.n_kv_heads, g, cfg.head_dim)
+    # Head sharding for GQA: when kv_heads < TP degree but q_heads divide it,
+    # repeat K/V to full heads for the *compute* (same FLOPs) so the score
+    # tensor shards over 'model' on the head dim
+    k_cacheable, v_cacheable = k, v  # pre-repeat (cache stores true kv heads)
+    tp = axis_size("model")
+    if (
+        kv_cache is None
+        and g > 1
+        and cfg.n_kv_heads % tp != 0
+        and cfg.n_heads % tp == 0
+    ):
+        k = constrain(torch.repeat_interleave(k, g, dim=2), "batch", None, "heads", None)
+        v = constrain(torch.repeat_interleave(v, g, dim=2), "batch", None, "heads", None)
+        qg = q.reshape(b, s, cfg.n_heads, 1, cfg.head_dim)
+    else:
+        qg = q.reshape(b, s, cfg.n_kv_heads, g, cfg.head_dim)
+    qg = constrain(qg, "batch", None, "heads", None, None)
 
     if kv_cache is not None:  # decode: append then attend against the cache
         ck, cv, cpos = kv_cache  # [B, Sc, Hkv, hd] x2, [B, Sc] positions (-1 empty)
@@ -278,6 +375,8 @@ def attention(x, p: Attention, cfg: ModelConfig, kind: str, positions, kv_cache=
             ck[rows, slot] = k[:, 0].to(ck.dtype)
             cv[rows, slot] = v[:, 0].to(cv.dtype)
             cpos[rows, slot] = positions[:, 0].to(cpos.dtype)
+        ck = constrain(ck, "batch", "kv_seq", None, None)
+        cv = constrain(cv, "batch", "kv_seq", None, None)
         mask = _attn_mask(positions, cpos, kind, cfg.window)
         out = _sdpa(qg, ck, cv, mask, cfg.attn_softcap)
         new_cache = (ck, cv, cpos)
@@ -288,14 +387,39 @@ def attention(x, p: Attention, cfg: ModelConfig, kind: str, positions, kv_cache=
         else:
             mask = _attn_mask(positions, positions, kind, cfg.window)
             out = _sdpa(qg, k, v, mask, cfg.attn_softcap)
-        new_cache = (k, v, positions)
+        new_cache = (k_cacheable, v_cacheable, positions)
     out = out.reshape(b, s, cfg.q_dim)
-    return _mm(out, p.wo), new_cache
+    return constrain(_mm(out, p.wo), "batch", "seq", None), new_cache
 
 
 def embedding_lookup(table, tokens):
-    """Row gather (the reference's unsharded ``jnp.take`` branch)."""
-    return table[tokens]
+    """Vocab-parallel embedding gather.
+
+    With the table vocab-sharded over 'model', each model shard gathers its
+    local rows (out-of-range tokens masked to zero) and the partial outputs
+    sum over 'model' -- the classic Megatron vocab-parallel embedding.  A
+    plain row gather when no rules are active or the vocab does not divide
+    the TP degree.
+    """
+    rules = get_rules()
+    v = table.shape[0]
+    if rules is None:
+        return table[tokens]
+    mesh = rules.mesh
+    tp = rules.model_axis
+    tp_size = mesh_sizes(mesh).get(tp, 1)
+    if tp_size == 1 or v % tp_size != 0:
+        return table[tokens]
+    bspec = _batch_spec(rules, tokens.shape[0])
+    rows = v // tp_size
+    tbl = _local(table, mesh, (tp, None))
+    tok = _local(tokens, mesh, (bspec, None))
+    off = mesh.get_local_rank(tp) * rows
+    idx = tok - off
+    ok = (idx >= 0) & (idx < rows)
+    local_rows = tbl[idx.clamp(0, rows - 1)]
+    out = torch.where(ok[..., None], local_rows, torch.zeros_like(local_rows))
+    return _global(psum(out, tp), mesh, (bspec, None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +431,8 @@ def mlp(x, p: MLP, cfg: ModelConfig):
     h = rms_norm(x, p.ln, cfg.norm_eps)
     gate = act_fn(_mm(h, p.w_gate), cfg.act)
     up = _mm(h, p.w_up)
-    return _mm(gate * up, p.w_down)
+    hidden = constrain(gate * up, "batch", None, "ff")
+    return constrain(_mm(hidden, p.w_down), "batch", "seq", None)
 
 
 def moe_route(tokens, router, cfg: ModelConfig):
@@ -337,12 +462,14 @@ def moe_route(tokens, router, cfg: ModelConfig):
     return cap, slot, top_p, top_ids, probs
 
 
-def moe_dispatch_local(tokens, router, w_gate, w_up, w_down, cfg: ModelConfig):
-    """Sort-based top-k dispatch with capacity.
+def moe_dispatch_local(tokens, router, w_gate, w_up, w_down, cfg: ModelConfig, tp_axis=None):
+    """Sort-based top-k dispatch with capacity, entirely rank-local.
 
     tokens: [T, D].  Routes each token to its top_k experts
     (:func:`moe_route`), packs tokens into [E, C, D] capacity buffers
-    (pairs past capacity are dropped, Switch-style), runs the expert GEMMs,
+    (pairs past capacity are dropped, Switch-style), runs the expert GEMMs
+    (the ff dim TP-sharded under the mesh branch of :func:`moe`;
+    ``tp_axis`` names the axis to sum the partial down-projections over),
     and combines with the router weights.  Returns (out [T, D], the
     load-balancing aux loss).
     """
@@ -361,6 +488,8 @@ def moe_dispatch_local(tokens, router, w_gate, w_up, w_down, cfg: ModelConfig):
     gate = act_fn(torch.bmm(buf, w_gate.to(buf.dtype)), cfg.act)
     up = torch.bmm(buf, w_up.to(buf.dtype))
     expert_out = torch.bmm(gate * up, w_down.to(buf.dtype))
+    if tp_axis is not None:  # partial sums over the TP-sharded ff dim
+        expert_out = psum(expert_out, tp_axis)
 
     flat_out = torch.cat([expert_out.reshape(e * cap, d), expert_out.new_zeros((1, d))], dim=0)
     gathered = flat_out[slot.reshape(-1)].reshape(t, k, d)
@@ -372,10 +501,68 @@ def moe_dispatch_local(tokens, router, w_gate, w_up, w_down, cfg: ModelConfig):
 
 
 def moe(x, p: MoE, cfg: ModelConfig):
-    """MoE ffn: pre-norm, then the local dispatch over all B*S tokens."""
+    """MoE ffn: pre-norm, then the dispatch.
+
+    With no rules: the local dispatch over all B*S tokens.  Under rules
+    (the reference's ``shard_map`` branch, taken on any mesh, 1 x 1
+    included): tokens stay rank-local for the sort/dispatch, expert ffn
+    weights are TP-sharded on the ff dim with a psum of the partial
+    down-projections (Megatron-style TP within each expert), or replicated
+    when that would leave under 128 ff columns a rank -- then the sequence
+    is sharded over 'model' instead.  ``moe_token_chunk`` > 1 runs the
+    dispatch chunk by chunk, each checkpointed, with capacity per chunk.
+    The aux loss is averaged over the batch and sequence axes.
+    """
     b, s, d = x.shape
-    x = rms_norm(x, p.ln, cfg.norm_eps)
-    out, aux = moe_dispatch_local(
-        x.reshape(b * s, d), p.router, p.w_gate, p.w_up, p.w_down, cfg
-    )
-    return out.reshape(b, s, d), aux
+    x = rms_norm(x, p.ln, cfg.norm_eps)  # pre-norm (as in the dense mlp)
+    rules = get_rules()
+    if rules is None:
+        out, aux = moe_dispatch_local(
+            x.reshape(b * s, d), p.router, p.w_gate, p.w_up, p.w_down, cfg
+        )
+        return out.reshape(b, s, d), aux
+
+    mesh = rules.mesh
+    tp = rules.model_axis
+    sizes = mesh_sizes(mesh)
+    tp_size = sizes.get(tp, 1)
+    # tiny experts: TP-sharding moe_d_ff below 128 columns a rank only buys
+    # a psum -- replicate the expert weights instead (they are small)
+    replicate_experts = cfg.moe_d_ff // max(tp_size, 1) < 128
+    batch_spec = _batch_spec(rules, b)
+    # expert-data-parallel: with replicated experts, also shard the sequence
+    # over 'model' so each TP rank routes its own token slice (replicated
+    # tokens when the sequence does not divide, e.g. decode)
+    seq_spec = tp if (replicate_experts and s % max(tp_size, 1) == 0) else None
+    ff = None if replicate_experts else tp
+    xl = _local(x, mesh, (batch_spec, seq_spec, None))
+    router = _local(p.router, mesh, (None, None))
+    wg = _local(p.w_gate, mesh, (None, None, ff))
+    wu = _local(p.w_up, mesh, (None, None, ff))
+    wd = _local(p.w_down, mesh, (None, ff, None))
+
+    bl, sl, _ = xl.shape
+    tokens = xl.reshape(bl * sl, d)
+    nc = cfg.moe_token_chunk
+    if nc > 1 and (bl * sl) % nc == 0:
+        # chunk by chunk: peak dispatch buffers shrink by nc (capacity is
+        # enforced per chunk, as with expert parallelism)
+        def body(tc):
+            return moe_dispatch_local(tc, router, wg, wu, wd, cfg, tp_axis=ff)
+
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        outs = []
+        for tc in tokens.reshape(nc, (bl * sl) // nc, d):
+            oc, ac = checkpoint(body, tc, use_reentrant=False)
+            aux = aux + ac
+            outs.append(oc)
+        out = torch.stack(outs).reshape(bl * sl, d)
+        aux = aux / nc
+    else:
+        out, aux = moe_dispatch_local(tokens, router, wg, wu, wd, cfg, tp_axis=ff)
+    axes = (batch_spec or ()) + ((seq_spec,) if seq_spec else ())
+    for a in axes:  # pmean, one axis at a time (equal-sized groups)
+        aux = psum(aux, a) / sizes[a]
+    out = _global(out.reshape(bl, sl, d), mesh, (batch_spec, seq_spec, None))
+    aux = _global(aux, mesh, ())
+    return constrain(out, "batch", "seq", None), aux

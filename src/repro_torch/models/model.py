@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.context import constrain
 
 from . import layers as L
 from . import rglru as RG
@@ -264,6 +265,7 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *, mode: str = "train",
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    x = constrain(x, "batch", "seq", None)
     max_seq = max_seq or s
 
     def body(x, aux, blocks):
@@ -302,7 +304,21 @@ def logits_from_hidden(params: LM, cfg: ModelConfig, h):
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = L._mm(h, w).float()
     logits = L.softcap(logits, cfg.logit_softcap)
-    return _mask_pad_vocab(logits, cfg)
+    return constrain(_mask_pad_vocab(logits, cfg), "batch", None, "vocab")
+
+
+def _vocab_whole(logits):
+    """``logits`` with the vocab dim whole on every rank.  DTensor's gather
+    along a sharded dim leaves a masked partial sum that the next op fails
+    to reduce (torch 2.13: ``IndexError`` in ``MaskBuffer.apply_mask``), so
+    a vocab-sharded DTensor is gathered over its vocab first."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(logits, DTensor):
+        return logits
+    vocab = logits.ndim - 1
+    placements = [Replicate() if p.is_shard(vocab) else p for p in logits.placements]
+    return logits.redistribute(logits.device_mesh, placements)
 
 
 def chunked_ce_loss(params: LM, cfg: ModelConfig, h, labels, mask=None, chunk: int = 1024):
@@ -322,9 +338,9 @@ def chunked_ce_loss(params: LM, cfg: ModelConfig, h, labels, mask=None, chunk: i
 
     def chunk_loss(hc, lc, mc):
         logits = L.softcap(L._mm(hc, w).float(), cfg.logit_softcap)
-        logits = _mask_pad_vocab(logits, cfg)
+        logits = constrain(_mask_pad_vocab(logits, cfg), "batch", None, "vocab")
         logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        ll = torch.gather(_vocab_whole(logits), -1, lc[..., None].long())[..., 0]
         return torch.sum((logz - ll) * mc), torch.sum(mc)
 
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -356,6 +372,7 @@ def decode_step(params: LM, cfg: ModelConfig, caches, tokens, pos):
     else:
         pos = int(pos)
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    x = constrain(x, "batch", None, None)
     new_caches = []
     for bp, cache in zip(params.blocks, caches):
         x, st, _ = _apply_block(x, bp, bp.kind, cfg, positions, cache=cache, cache_pos=pos)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.context import constrain
 
 from .layers import Init, _mm, rms_norm
 
@@ -74,6 +75,7 @@ def rglru_block(x, p: RGLRU, cfg: ModelConfig, state=None):
     branch = _mm(xin, p.w_x)
     gate = F.gelu(_mm(xin, p.w_y), approximate="tanh")  # jax.nn.gelu's default
     xi, conv_state = _causal_conv(branch, p.conv_w, p.conv_b, conv_state)
+    xi = constrain(xi, "batch", None, "ff")
 
     r = torch.sigmoid(_mm(xi, p.w_a).float())
     ig = torch.sigmoid(_mm(xi, p.w_i).float())
@@ -97,4 +99,4 @@ def rglru_block(x, p: RGLRU, cfg: ModelConfig, state=None):
         new_h = hidden[:, -1, :]
 
     out = _mm(hidden.to(x.dtype) * gate, p.w_o)
-    return out, (new_h, conv_state)
+    return constrain(out, "batch", "seq", None), (new_h, conv_state)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.context import constrain
 
 from .layers import Init, _einsum, _mm, rms_norm
 
@@ -150,7 +151,7 @@ def time_mix(x, p: RWKV, cfg: ModelConfig, state=None, shift_prev=None, chunked=
     out, state = fn(r, k, v, logw, p.u, state)
     out = _group_norm(out, p.ln_x, cfg.norm_eps).to(xin.dtype)
     out = _mm(out * g, p.wo)
-    return out, state, xin[:, -1, :]
+    return constrain(out, "batch", "seq", None), state, xin[:, -1, :]
 
 
 def channel_mix(x, p: RWKV, cfg: ModelConfig, shift_prev=None):
@@ -163,4 +164,4 @@ def channel_mix(x, p: RWKV, cfg: ModelConfig, shift_prev=None):
     xr = xin + xx * p.mu_cr.to(xin.dtype)
     kk = torch.square(torch.relu(_mm(xk, p.ck)))
     out = torch.sigmoid(_mm(xr, p.cr)) * _mm(kk, p.cv)
-    return out, xin[:, -1, :]
+    return constrain(out, "batch", "seq", None), xin[:, -1, :]

@@ -58,9 +58,30 @@ def init_opt_state(params: dict) -> dict:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
+    """sqrt of the sum of squares of every element, in float32.
+
+    Of DTensors (a sharded state's gradients, each on its parameter's
+    placements) every rank takes the norms of its local pieces; a leaf
+    split over mesh axes of more than one rank has its squared norm summed
+    over them.  A leaf no axis splits needs no collective, so on a 1 x 1
+    mesh the result is bit for bit the unsharded one."""
+    from torch.distributed.tensor import DTensor
+
     tensors = list(tensors.values()) if isinstance(tensors, dict) else list(tensors)
-    norms = torch._foreach_norm([t.float() for t in tensors])
+    local = [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
+    norms = list(torch._foreach_norm([t.float() for t in local]))
+    for i, t in enumerate(tensors):
+        if not isinstance(t, DTensor):
+            continue
+        mesh = t.device_mesh
+        split = [d for d, p in enumerate(t.placements) if p.is_shard() and mesh.size(d) > 1]
+        if split:
+            import torch.distributed as dist
+
+            sq = norms[i].square()
+            for d in split:
+                dist.all_reduce(sq, group=mesh.get_group(d))
+            norms[i] = sq.sqrt()
     return torch.linalg.vector_norm(torch.stack(norms))
 
 

@@ -6,12 +6,21 @@ returned step takes ``(state, batch)`` and returns ``(state, metrics)``
 like the reference's; it updates the state's tensors in place (see
 ``optimizer.py``) and runs eagerly on the parameters' device.  Metrics are
 0-d tensors on that device: reading one waits for the step.
+
+A state placed on a mesh (``launch.sharding.place`` with
+``state_shardings``: parameters, ``m`` and ``v`` are DTensors) takes the
+same step, run under ``dist.context.use_rules``: DTensor propagates the
+placements through the forward and backward passes, each gradient is
+reduced to its parameter's placements (a reduce-scatter or all-reduce over
+the batch axes), the update runs shard by shard, and the metrics come back
+as plain float32 tensors.  Each rank holds only its shards.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import chunked_ce_loss, forward, init_params
@@ -57,6 +66,11 @@ def make_loss_fn(model_cfg: ModelConfig, train_cfg: TrainConfig):
     return loss_fn
 
 
+def _plain(v: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's full value)."""
+    return v.full_tensor() if isinstance(v, DTensor) else v
+
+
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
     loss_fn = make_loss_fn(model_cfg, train_cfg)
 
@@ -69,8 +83,12 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
         total.backward()
         grads = {}
         for name, p in params.named_parameters():
-            grads[name] = (torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                           if p.grad is None else p.grad.float())
+            g = p.grad
+            if g is None:
+                g = torch.zeros_like(p, dtype=torch.float32)
+            elif isinstance(g, DTensor) and g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)  # reduce over the batch axes
+            grads[name] = g.float()
             p.grad = None
         return grads, {**{k: v.detach() for k, v in metrics.items()},
                        "total_loss": total.detach()}
@@ -107,7 +125,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
         model = state["params"]
         _, opt, om = apply_updates(dict(model.named_parameters()), grads, state["opt"],
                                    train_cfg.opt)
-        return {"params": model, "opt": opt}, {**metrics, **om}
+        return {"params": model, "opt": opt}, {k: _plain(v) for k, v in {**metrics, **om}.items()}
 
     return train_step
 
@@ -118,6 +136,6 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
     @torch.no_grad()
     def eval_step(params, batch):
         _, metrics = loss_fn(params, batch)
-        return metrics
+        return {k: _plain(v) for k, v in metrics.items()}
 
     return eval_step

@@ -28,7 +28,9 @@ def test_port_imports_neither_jax_nor_reference():
         "repro_torch.serve.engine, repro_torch.launch, repro_torch.launch.serve, "
         "repro_torch.train, repro_torch.train.optimizer, repro_torch.train.step, "
         "repro_torch.data.pipeline, repro_torch.ckpt, repro_torch.ckpt.manager, "
-        "repro_torch.ft, repro_torch.ft.monitor, repro_torch.launch.train; "
+        "repro_torch.ft, repro_torch.ft.monitor, repro_torch.launch.train, "
+        "repro_torch.dist.context, repro_torch.dist.compression, repro_torch.dist.pipeline, "
+        "repro_torch.launch.mesh, repro_torch.launch.sharding; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]; "
         "print('BAD', bad); sys.exit(1 if bad else 0)"
@@ -52,7 +54,8 @@ def test_sources_name_neither_jax_nor_reference():
                 "models/rwkv6.py", "models/model.py", "serve/engine.py", "launch/serve.py",
                 "train/__init__.py", "train/optimizer.py", "train/step.py", "data/pipeline.py",
                 "ckpt/__init__.py", "ckpt/manager.py", "ft/__init__.py", "ft/monitor.py",
-                "launch/train.py"):
+                "launch/train.py", "dist/context.py", "dist/compression.py",
+                "dist/pipeline.py", "launch/mesh.py", "launch/sharding.py"):
         assert os.path.join(SRC, "repro_torch", *new.split("/")) in files
     for path in files:
         with open(path) as f:

@@ -97,5 +97,6 @@ def test_sigterm_checkpoints_and_stops(tmp_path, capsys, monkeypatch, handlers):
 
 
 def test_production_mesh_is_refused(capsys):
-    with pytest.raises(SystemExit, match="mesh slice"):
+    # make_production_mesh's error: the (16, 16) mesh needs 256 ranks, not 1
+    with pytest.raises(ValueError, match="needs 256 ranks; the process group has 1"):
         TL.main(ARGS + ["--production-mesh", "--device", "cpu"])
