@@ -183,6 +183,22 @@ What it does, one JSON object per line:
                        ``launch.train.main`` on the mesh path, then resumed
                        through ``restore(..., shardings=)``.  Launch counts
                        are read around the phase: it reaches neither kernel.
+21. ``lm_dryrun``   -- after ``lm_mesh``: ``repro_torch.launch.dryrun.run_cell``
+                       on fake CUDA tensors and a fake process group of the
+                       production size (no memory on the card) for qwen3-1.7b
+                       ``train_4k`` and ``decode_32k`` on the 16 x 16 mesh
+                       (heads split over 'model') and mixtral-8x22b
+                       ``prefill_32k`` on 2 x 16 x 16 (the MoE branch, 512
+                       ranks); each cell OK, its trace seconds, dot FLOPs,
+                       collective bytes by kind, argument and temporary
+                       bytes a rank, and whether they fit on the card.  Then
+                       ``lm_train``'s own step under the same accounting on
+                       fake tensors: its predicted dot FLOPs beside
+                       ``FlopCounterMode`` on the real step, its predicted
+                       peak beside the ``max_memory_allocated`` that
+                       ``lm_train`` measured.  No process group is left,
+                       ``max_memory_allocated`` rises under 64 MiB, and
+                       neither kernel launches.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line (each kernel's ``launches`` from its main path's own window: K1's
@@ -3644,6 +3660,13 @@ def lm_train_full(dev, seed: int, cfg) -> dict:
     state, report["profile"] = train_profile(make_train_step(cfg, TrainConfig(opt=opt)), state,
                                              batches[step + 2])
     check(np.isfinite(report["profile"]["loss"]), f"profiled step: {report['profile']}")
+    # the products' FLOPs of one more step (the dry run's accounting is held to it)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        state, _ = make_train_step(cfg, TrainConfig(opt=opt))(state, batches[0])
+    torch.cuda.synchronize()
+    report["flop_counter_flops"] = fc.get_total_flops()
     return report
 
 
@@ -3812,6 +3835,7 @@ def phase_lm_train(dev, smi: str, seed: int, cfg=None) -> None:
         report["resume"] = lm_train_resume(dev, os.path.join(tmp, "resume"))
         report["launch_train"] = lm_train_launch(os.path.join(tmp, "launch"))
     emit("lm_train", **report)
+    return {k: report["full"][k] for k in ("max_memory_allocated", "flop_counter_flops")}
 
 
 # ---------------------------------------------------------------------------
@@ -4079,6 +4103,113 @@ def phase_lm_mesh(dev, smi: str, seed: int, cfg=None) -> None:
     emit("lm_mesh", **report)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the dry run (launch/dryrun, launch/hlo_analysis) on fake ranks
+# ---------------------------------------------------------------------------
+
+LM_DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("qwen3-1.7b", "decode_32k", "single"),
+                   ("mixtral-8x22b", "prefill_32k", "multi"))
+LM_DRYRUN_PEAK_RTOL = 0.15  # target of the predicted peak of lm_train's step (reported)
+LM_DRYRUN_MAX_ALLOC = 64 * 2**20  # the phase allocates nothing on the card: under this
+
+
+def lm_dryrun_cell(arch: str, shape: str, mesh: str, dev, out_dir: str, card_bytes: int) -> dict:
+    """One cell of the dry run on fake tensors of ``dev``: its record, read."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import run_cell
+
+    rec = run_cell(arch, shape, mesh, out_dir, force=True, device=dev)
+    check(not dist.is_initialized(), f"{arch} {shape} {mesh}: the fake group was left")
+    check(rec["status"] == "OK", f"{arch} {shape} {mesh}: {rec.get('error')}\n"
+                                 f"{rec.get('traceback', '')}")
+    mem = rec["memory_analysis"]
+    held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    return {"cell": f"{arch} {shape} {mesh}", "n_devices": rec["n_devices"],
+            "mesh_shape": rec["mesh_shape"], "trace_s": rec["lower_s"],
+            "dot_flops_per_device": rec["loop_aware"]["dot_flops"],
+            "collective_bytes_per_device": rec["collectives"]["bytes"],
+            "collective_counts": rec["collectives"]["counts"],
+            "argument_gib": mem["argument_size_in_bytes"] / 2**30,
+            "temp_gib": mem["temp_size_in_bytes"] / 2**30,
+            "output_gib": mem["output_size_in_bytes"] / 2**30,
+            "fits_on_card": held <= card_bytes, "ops": rec["loop_aware"]["n_computations"]}
+
+
+def lm_dryrun_accounting(dev, seed: int, cfg, measured: dict) -> dict:
+    """``lm_train``'s own step (float32, batch 8 x 128, the launch's
+    ``OptConfig``, no mesh) on fake tensors under ``OpAccounting``: the
+    predicted dot FLOPs and peak (the step's arguments plus the most bytes
+    its storages held at once) beside what ``lm_train`` measured."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.launch.dryrun import _local_bytes
+    from repro_torch.launch.hlo_analysis import OpAccounting
+    from repro_torch.train import OptConfig, TrainConfig, init_train_state, make_train_step
+
+    total = LM_TRAIN_STEPS + 7
+    opt = OptConfig(peak_lr=LM_TRAIN_LR, warmup_steps=10, total_steps=total)
+    dc = DataConfig(vocab=cfg.vocab, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, seed=seed)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        state = init_train_state(cfg, seed, device=dev)
+        batch = lm_batch(dc, 0, dev)
+        args = _local_bytes((state, batch))
+        with OpAccounting() as acc:
+            make_train_step(cfg, TrainConfig(opt=opt))(state, batch)
+        del state, batch
+    flops = acc.result()["dot_flops"]
+    predicted = args + acc.peak_bytes
+    out = {"seconds": time.perf_counter() - t0, "predicted_dot_flops": flops,
+           "flop_counter_flops": measured["flop_counter_flops"],
+           "argument_bytes": args, "temp_peak_bytes": acc.peak_bytes,
+           "predicted_peak_bytes": predicted,
+           "measured_peak_bytes": measured["max_memory_allocated"],
+           "peak_rel_err": predicted / measured["max_memory_allocated"] - 1.0,
+           "peak_rtol": LM_DRYRUN_PEAK_RTOL}
+    # a miss of the peak's target is a reading to explain, not a failed run
+    out["peak_within_target"] = abs(out["peak_rel_err"]) <= LM_DRYRUN_PEAK_RTOL
+    check(flops == measured["flop_counter_flops"],
+          f"predicted dot FLOPs {flops} vs FlopCounterMode {measured['flop_counter_flops']}")
+    return out
+
+
+def phase_lm_dryrun(dev, smi: str, seed: int, measured: dict, cells=LM_DRYRUN_CELLS,
+                    cfg=None) -> None:
+    """The dry run's production cells on fake CUDA tensors and fake ranks,
+    then its accounting held to ``lm_train``'s real step (``measured``: the
+    peak and FLOPs ``phase_lm_train`` returned; ``cfg``: another config, for
+    a rehearsal)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+
+    check(not dist.is_initialized(), "a process group is left from an earlier phase")
+    report = {"card": smi, "torch": torch.__version__}
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.synchronize()
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    alloc_before = torch.cuda.memory_allocated()
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        report["cells"] = [lm_dryrun_cell(a, s, m, dev, tmp, card_bytes) for a, s, m in cells]
+    report["accounting"] = lm_dryrun_accounting(dev, seed, cfg or get_config(LM_ARCH), measured)
+    counts = read_counts("lm_dryrun")
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - alloc_before
+    report.update(launch_counts=counts, card_bytes=card_bytes,
+                  max_memory_allocated_rise=rise, peak_before_phase=peak_before,
+                  process_group_left=dist.is_initialized())
+    emit("lm_dryrun", **report)
+    check(not dist.is_initialized(), "the dry run left a process group")
+    check(not any(counts.values()), f"the dry run reaches no bitmap kernel: {counts}")
+    check(rise < LM_DRYRUN_MAX_ALLOC, f"the dry run allocated {rise} bytes on the card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows-log2", type=int, default=27,
@@ -4136,8 +4267,9 @@ def main() -> int:
     del stream
     timed("search", phase_search, dev, args.search_rows_log2, smi, args.seed)
     timed("lm_serve", phase_lm_serve, dev, smi, args.seed)
-    timed("lm_train", phase_lm_train, dev, smi, args.seed)
+    lm_train_measured = timed("lm_train", phase_lm_train, dev, smi, args.seed)
     timed("lm_mesh", phase_lm_mesh, dev, smi, args.seed)
+    timed("lm_dryrun", phase_lm_dryrun, dev, smi, args.seed, lm_train_measured)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port must not import jax or the reference package")
 

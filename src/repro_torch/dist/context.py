@@ -27,13 +27,14 @@ is its ``ppermute`` over a ring.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 from contextlib import contextmanager
 
 import torch
 
-__all__ = ["ShardingRules", "use_rules", "get_rules", "constrain", "axis_size",
+__all__ = ["ShardingRules", "use_rules", "get_rules", "bound_to_rules", "constrain", "axis_size",
            "mesh_sizes", "spec_placements", "psum", "ring_shift"]
 
 
@@ -90,16 +91,40 @@ def get_rules() -> ShardingRules | None:
 @contextmanager
 def use_rules(rules: ShardingRules):
     """Install ``rules`` for this thread, under DTensor's implicit
-    replication (plain tensors mixed with DTensors count as replicated)."""
-    from torch.distributed.tensor.experimental import implicit_replication
+    replication (plain tensors mixed with DTensors count as replicated).
+    Both are put back as they were on the way out, so the context nests
+    (torch's own ``implicit_replication`` turns the switch off when it
+    leaves, whoever had turned it on)."""
+    from torch.distributed.tensor import DTensor
 
-    prev = get_rules()
+    dispatcher = DTensor._op_dispatcher
+    prev, prev_implicit = get_rules(), dispatcher._allow_implicit_replication
     _STATE.rules = rules
+    dispatcher._allow_implicit_replication = True
     try:
-        with implicit_replication():
-            yield rules
+        yield rules
     finally:
+        dispatcher._allow_implicit_replication = prev_implicit
         _STATE.rules = prev
+
+
+def bound_to_rules(fn):
+    """``fn`` run under the rules active now, from whichever thread calls
+    it.  A checkpointed body is recomputed in the backward pass, which on a
+    CUDA device runs on the autograd engine's own thread: the engine
+    carries the caller's dispatch state there (DTensor's implicit
+    replication with it), not Python's thread-locals, so the rules of the
+    thread that built the graph are not installed."""
+    rules = get_rules()
+    if rules is None:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with use_rules(rules):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def axis_size(axis: str) -> int:

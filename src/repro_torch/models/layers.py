@@ -7,14 +7,20 @@ The port of ``repro.models.layers``.  Each function takes the block's
 parameters carry the reference's key names (``p.wq`` is ``p["wq"]``), so
 the code reads like the reference's.  Sharding is expressed through
 ``repro_torch.dist.context.constrain`` with logical axis names, as in the
-reference.  Under sharding rules three branches run per rank, as the
+reference.  Under sharding rules four branches run per rank, as the
 reference's ``shard_map`` does: the vocab-parallel ``embedding_lookup``,
 the MoE dispatch (tokens local to their rank, expert weights TP-sharded on
-the ff dim, partial down-projections summed over TP), and the head-repeat
-of ``attention`` when the KV heads do not divide the TP degree.  Each takes
-the DTensors' local shards (``_local``), computes on plain tensors with
-``dist.context.psum`` for the reference's ``psum``, and wraps its result
-back into a DTensor (``_global``).
+the ff dim, partial down-projections summed over TP), the head-repeat of
+``attention`` when the KV heads do not divide the TP degree, and the
+attention itself (``_attend``: each rank its batch rows and heads; decode
+writes the new entry into the rank's block of the cache and, where the
+cache's sequence is split, combines the blocks' softmax over the ranks).
+Each takes the DTensors' local shards (``_local``), computes on plain
+tensors with ``dist.context.psum`` for the reference's ``psum``, and wraps
+its result back into a DTensor (``_global``).  The reference leaves the
+attention to GSPMD; DTensor's sharding propagation cannot place its score
+``einsum`` once heads are split (it asks a tensor's value, which fails
+under ``FakeTensorMode`` and, on torch 2.11, with real ranks).
 
 Matrix products are ``torch.matmul`` / ``einsum`` (the reference leaves
 them to XLA; no Pallas here).  Where ``jnp`` promotes mixed float32 /
@@ -28,12 +34,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.context import (
     axis_size,
+    bound_to_rules,
     constrain,
     get_rules,
     mesh_sizes,
@@ -197,19 +204,121 @@ class MoE(nn.Module):
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with ``jnp``'s promotion of mixed float dtypes."""
+    """``a @ b`` with ``jnp``'s promotion of mixed float dtypes.
+
+    Of DTensors, Megatron's column- and row-parallel products under ZeRO-3:
+    the activation ``a`` keeps no middle dim split and, off the
+    tensor-parallel axis, only its batch rows (:func:`_rows_only`); the
+    weight ``b`` is gathered on the other axes and keeps its
+    tensor-parallel split (:func:`_product_operands`); the output's
+    gradient comes back placed as the output was (:class:`_PinGrad`).  Left
+    to itself DTensor merges a split sequence into the product's rows
+    (torch 2.11 refuses; torch 2.13 makes a strided split), and splits dims
+    over an axis a value is replicated on in an order whose merge makes a
+    strided split; a strided split's placement asks a tensor's value,
+    which fails under ``FakeTensorMode``."""
     if a.dtype != b.dtype:
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
-    return a @ b
+    if isinstance(a, DTensor):
+        a = _rows_only(a)
+    if isinstance(b, DTensor) and b.ndim == 2:
+        a, b = _product_operands(a, b)
+    return _pin_grad(a @ b)
+
+
+def _rows_only(x):
+    """An activation DTensor placed as a product takes it: its rows (dim 0,
+    the batch) split over the rules' batch axes and whole on every other
+    axis but the tensor-parallel one, where it keeps its split unless that
+    is a middle dim (a split sequence is gathered).  Left to themselves,
+    DTensor's elementwise ops split other dims over an axis a value is
+    replicated on (the feature dim over ``pod``, or over ``data`` instead
+    of the rows), and a later merge of those dims makes a strided split."""
+    rules = get_rules()
+    if rules is None:
+        return x
+    mesh = x.device_mesh
+    rows = spec_placements(mesh, (_batch_spec(rules, x.shape[0]),) + (None,) * (x.ndim - 1))
+    placements = []
+    for name, p, want in zip(mesh.mesh_dim_names, x.placements, rows):
+        if name != rules.model_axis:
+            placements.append(want)
+        else:
+            placements.append(Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1 else p)
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def _pin_grad(x):
+    """``x``; a DTensor's gradient redistributed to ``x``'s placements."""
+    return _PinGrad.apply(x) if isinstance(x, DTensor) else x
+
+
+class _PinGrad(torch.autograd.Function):
+    """The identity, whose gradient is redistributed to the placements the
+    forward value had (a partial sum's gradient: replicated).  On a
+    product's output it keeps DTensor's backward from splitting the
+    gradient over an axis the value was replicated on, in an order whose
+    merge into the product's rows makes a strided split."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh = x.device_mesh
+        ctx.placements = [Replicate() if p.is_partial() else p for p in x.placements]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and list(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def _product_operands(a, b):
+    """``a`` and the weight ``b`` of ``a @ b`` placed for a ZeRO-3 product.
+    On the tensor-parallel axis ``b`` keeps its split: its columns
+    (column-parallel; gathered if ``a`` is split there too), or its rows,
+    ``a``'s last dim then split to match (row-parallel, a partial sum).  On
+    every other axis (FSDP: the batch axes, and ``pod`` when the batch is
+    not split over it) ``b`` is gathered."""
+    rules = get_rules()
+    tp = rules.model_axis if rules is not None else None
+    mesh = b.device_mesh
+    a_pl = a.placements if isinstance(a, DTensor) else [Replicate()] * mesh.ndim
+    keep, slice_a = [], []
+    for name, pa, pb in zip(mesh.mesh_dim_names, a_pl, b.placements):
+        if tp is not None and name != tp:
+            keep.append(Replicate() if pb.is_shard() else pb)
+            slice_a.append(pa)
+            continue
+        row_parallel = pb.is_shard(0) and pa.is_shard(a.ndim - 1)
+        if pa.is_shard() and (pb.is_shard(1) or (pb.is_shard(0) and not row_parallel)):
+            keep.append(Replicate())
+        else:
+            keep.append(pb)
+        slice_a.append(Shard(a.ndim - 1) if pa.is_replicate() and pb.is_shard(0) else pa)
+    if keep != list(b.placements):
+        b = b.redistribute(mesh, keep)
+    if isinstance(a, DTensor) and slice_a != list(a_pl):
+        a = a.redistribute(mesh, slice_a)
+    return a, b
 
 
 def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` with ``jnp``'s promotion of mixed float dtypes."""
+    """``torch.einsum`` with ``jnp``'s promotion of mixed float dtypes (a
+    DTensor result's gradient pinned as :func:`_mm`'s)."""
     dt = ops[0].dtype
     for o in ops[1:]:
         dt = torch.promote_types(dt, o.dtype)
-    return torch.einsum(eq, *(o.to(dt) for o in ops))
+    if any(isinstance(o, DTensor) for o in ops):
+        # the first operand is the activation (its batch rows stay split),
+        # the others are weights, gathered whole
+        ops = [_rows_only(ops[0]) if isinstance(ops[0], DTensor) else ops[0]] + [
+            o.redistribute(o.device_mesh, [Replicate()] * o.device_mesh.ndim)
+            if isinstance(o, DTensor) else o for o in ops[1:]]
+    return _pin_grad(torch.einsum(eq, *(o.to(dt) for o in ops)))
 
 
 def rms_norm(x, scale, eps: float):
@@ -308,15 +417,23 @@ def _sdpa_blocked(q, k, v, pos_q, pos_kv, kind, window, cap: float, kv_block: in
     return out.permute(0, 3, 1, 2, 4).to(v.dtype)  # [B,Sq,Hkv,G,hd]
 
 
-def _split_heads(x, n: int, hd: int):
-    """``x [B, S, n * hd]`` as ``[B, S, n, hd]``.  A DTensor whose feature
-    dim is split over more ranks than divide ``n`` is gathered on that dim
-    first: DTensor refuses to split heads unevenly, where GSPMD reshards."""
+def _whole_unless_divides(x, dim: int, n: int):
+    """``x``, or a DTensor gathered along ``dim`` when that dim is split
+    over more ranks than divide ``n`` (the count of the leading factor it
+    is about to be split into): DTensor refuses to split heads unevenly,
+    where GSPMD reshards."""
     if isinstance(x, DTensor):
         mesh = x.device_mesh
-        ranks = math.prod(mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(2))
+        ranks = math.prod(mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(dim))
         if n % ranks:
-            x = x.redistribute(mesh, [Replicate() if p.is_shard(2) else p for p in x.placements])
+            x = x.redistribute(mesh, [Replicate() if p.is_shard(dim) else p
+                                      for p in x.placements])
+    return x
+
+
+def _split_heads(x, n: int, hd: int):
+    """``x [B, S, n * hd]`` as ``[B, S, n, hd]``."""
+    x = _whole_unless_divides(x, 2, n)
     return x.reshape(x.shape[0], x.shape[1], n, hd)
 
 
@@ -358,38 +475,178 @@ def attention(x, p: Attention, cfg: ModelConfig, kind: str, positions, kv_cache=
         v = constrain(torch.repeat_interleave(v, g, dim=2), "batch", None, "heads", None)
         qg = q.reshape(b, s, cfg.n_heads, 1, cfg.head_dim)
     else:
-        qg = q.reshape(b, s, cfg.n_kv_heads, g, cfg.head_dim)
+        qg = _whole_unless_divides(q, 2, cfg.n_kv_heads).reshape(b, s, cfg.n_kv_heads, g,
+                                                                cfg.head_dim)
     qg = constrain(qg, "batch", None, "heads", None, None)
 
+    rules = get_rules()
     if kv_cache is not None:  # decode: append then attend against the cache
-        ck, cv, cpos = kv_cache  # [B, Sc, Hkv, hd] x2, [B, Sc] positions (-1 empty)
-        sc = ck.shape[1]
-        if isinstance(cache_pos, int):
-            slot = cache_pos % sc  # ring buffer (bounded for local layers)
-            ck[:, slot] = k[:, 0].to(ck.dtype)
-            cv[:, slot] = v[:, 0].to(cv.dtype)
-            cpos[:, slot] = positions[:, 0].to(cpos.dtype)
+        if rules is not None:
+            out = _decode_per_rank(qg, k, v, positions, kv_cache, cache_pos, kind, cfg, rules)
         else:
-            rows = torch.arange(b, device=ck.device)
-            slot = cache_pos.long() % sc
-            ck[rows, slot] = k[:, 0].to(ck.dtype)
-            cv[rows, slot] = v[:, 0].to(cv.dtype)
-            cpos[rows, slot] = positions[:, 0].to(cpos.dtype)
-        ck = constrain(ck, "batch", "kv_seq", None, None)
-        cv = constrain(cv, "batch", "kv_seq", None, None)
-        mask = _attn_mask(positions, cpos, kind, cfg.window)
-        out = _sdpa(qg, ck, cv, mask, cfg.attn_softcap)
-        new_cache = (ck, cv, cpos)
+            _write_cache(kv_cache, k, v, positions, cache_pos, kv_cache[0].shape[1])
+            ck, cv, cpos = kv_cache
+            mask = _attn_mask(positions, cpos, kind, cfg.window)
+            out = _sdpa(qg, ck, cv, mask, cfg.attn_softcap).reshape(b, s, cfg.q_dim)
+        new_cache = kv_cache
     else:
-        if s >= BLOCKED_ATTN_THRESHOLD:
-            out = _sdpa_blocked(qg, k, v, positions, positions, kind, cfg.window,
-                                cfg.attn_softcap)
+        if rules is not None:
+            out = _attend_per_rank(qg, k, v, positions, kind, cfg, rules)
         else:
-            mask = _attn_mask(positions, positions, kind, cfg.window)
-            out = _sdpa(qg, k, v, mask, cfg.attn_softcap)
+            out = _attend(qg, k, v, positions, kind, cfg).reshape(b, s, cfg.q_dim)
         new_cache = (k_cacheable, v_cacheable, positions)
-    out = out.reshape(b, s, cfg.q_dim)
     return constrain(_mm(out, p.wo), "batch", "seq", None), new_cache
+
+
+def _attend(qg, k, v, positions, kind: str, cfg: ModelConfig):
+    """Train / prefill attention of plain tensors: blocked from
+    ``BLOCKED_ATTN_THRESHOLD`` tokens up, dense below."""
+    if qg.shape[1] >= BLOCKED_ATTN_THRESHOLD:
+        return _sdpa_blocked(qg, k, v, positions, positions, kind, cfg.window, cfg.attn_softcap)
+    mask = _attn_mask(positions, positions, kind, cfg.window)
+    return _sdpa(qg, k, v, mask, cfg.attn_softcap)
+
+
+def _tp_spec(rules, size: int):
+    """The model axis when it splits a dim of ``size`` (heads, vocab)
+    evenly over 2 or more ranks, else ``None``."""
+    tp = rules.model_axis
+    n = mesh_sizes(rules.mesh).get(tp, 1)
+    return tp if n > 1 and size % n == 0 else None
+
+
+def _attend_per_rank(qg, k, v, positions, kind: str, cfg: ModelConfig, rules):
+    """:func:`_attend` on each rank's batch rows and heads (each head's
+    attention reads only its own q, k and v), as ``[B, S, q_dim]`` with the
+    features split as the heads are."""
+    mesh = rules.mesh
+    b, s = qg.shape[:2]
+    bspec = _batch_spec(rules, b)
+    hspec = _tp_spec(rules, qg.shape[2])
+    q_l = _local(qg, mesh, (bspec, None, hspec, None, None))
+    k_l = _local(k, mesh, (bspec, None, hspec, None))
+    v_l = _local(v, mesh, (bspec, None, hspec, None))
+    pos_l = _local(positions, mesh, (bspec, None))
+    out = _attend(q_l, k_l, v_l, pos_l, kind, cfg)
+    # heads are the major part of q_dim: a rank's heads are a contiguous block
+    return _global(out.reshape(out.shape[0], s, -1), mesh, (bspec, None, hspec))
+
+
+def _write_cache(kv_cache, k, v, positions, cache_pos, total: int, offset: int = 0):
+    """Write the new entry (``k`` / ``v`` ``[B, 1, Hkv, hd]``, ``positions``
+    ``[B, 1]``) into ``kv_cache``'s tensors IN PLACE, at slot ``cache_pos %
+    total`` (a ring buffer: bounded for local layers).  The tensors hold
+    the slots ``offset`` to ``offset + len`` of a cache of ``total`` slots
+    (one rank's block of a cache whose sequence is split); a slot outside
+    them is left to the rank that holds it."""
+    ck, cv, cpos = kv_cache  # [B, n, Hkv, hd] x2, [B, n] positions (-1 empty)
+    n = ck.shape[1]
+    entries = ((ck, k[:, 0]), (cv, v[:, 0]), (cpos, positions[:, 0]))
+    if isinstance(cache_pos, int):
+        lo = cache_pos % total - offset
+        if 0 <= lo < n:
+            for dst, new in entries:
+                dst[:, lo] = new.to(dst.dtype)
+        return
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    lo = cache_pos.long() % total - offset
+    if n == total:
+        for dst, new in entries:
+            dst[rows, lo] = new.to(dst.dtype)
+        return
+    own = (lo >= 0) & (lo < n)
+    lo = lo.clamp(0, n - 1)
+    for dst, new in entries:
+        keep = own.reshape(-1, *([1] * (new.ndim - 1)))
+        dst[rows, lo] = torch.where(keep, new.to(dst.dtype), dst[rows, lo])
+
+
+def _block_spec(t, mesh) -> tuple:
+    """The spec of a DTensor's placements (a plain tensor: replicated)."""
+    spec = [None] * t.ndim
+    if isinstance(t, DTensor):
+        for name, p in zip(mesh.mesh_dim_names, t.placements):
+            if p.is_shard():
+                prev = spec[p.dim]
+                spec[p.dim] = name if prev is None else (*(prev if isinstance(prev, tuple)
+                                                           else (prev,)), name)
+    return tuple(spec)
+
+
+def _block_offset(mesh, axes, block: int) -> int:
+    """This rank's first index along a dimension split over ``axes`` (in
+    the mesh's order, major first) in blocks of ``block``."""
+    if axes is None:
+        return 0
+    idx = 0
+    for a in (axes if isinstance(axes, tuple) else (axes,)):
+        idx = idx * mesh.size(mesh.mesh_dim_names.index(a)) + mesh.get_local_rank(a)
+    return idx * block
+
+
+def _decode_per_rank(qg, k, v, positions, kv_cache, cache_pos, kind: str, cfg: ModelConfig,
+                     rules):
+    """Decode attention on each rank's block of the cache, as ``[B, 1,
+    q_dim]``.  The cache keeps its placements (``launch.sharding.
+    cache_shardings``: batch over the batch axes, the sequence over
+    ``model`` when long): the new entry is written IN PLACE into the block
+    of the rank that holds its slot.  With the sequence split, every rank
+    takes all heads over its block of slots and the softmax is combined
+    over the ranks (a max, then sums of the weights and of the weighted
+    values); otherwise each rank takes its heads over all slots."""
+    mesh = rules.mesh
+    ck, cv, cpos = kv_cache
+    b = qg.shape[0]
+    spec = _block_spec(ck, mesh)
+    if spec[2:] != (None, None) or _block_spec(cpos, mesh) != spec[:2]:
+        raise ValueError(f"decode takes a cache split on batch and sequence only, not {spec}")
+    bspec, sspec = spec[:2]
+    local = tuple(t.to_local() if isinstance(t, DTensor) else t for t in kv_cache)
+    n = local[0].shape[1]
+    total = ck.shape[1]
+    pos_l = _local(positions, mesh, (bspec, None))
+    step_pos = cache_pos if isinstance(cache_pos, int) else _local(cache_pos, mesh, (bspec,))
+    _write_cache(local, _local(k, mesh, (bspec, None, None, None)),
+                 _local(v, mesh, (bspec, None, None, None)), pos_l, step_pos, total,
+                 _block_offset(mesh, sspec, n))
+    ck_l, cv_l, cpos_l = local
+    mask = _attn_mask(pos_l, cpos_l, kind, cfg.window)
+    if sspec is None:
+        hspec = _tp_spec(rules, qg.shape[2])
+        q_l = _local(qg, mesh, (bspec, None, hspec, None, None))
+        h = q_l.shape[2]
+        first = _block_offset(mesh, hspec, h)
+        out = _sdpa(q_l, ck_l.narrow(2, first, h), cv_l.narrow(2, first, h), mask,
+                    cfg.attn_softcap)
+        return _global(out.reshape(out.shape[0], 1, -1), mesh, (bspec, None, hspec))
+    q_l = _local(qg, mesh, (bspec, None, None, None, None))
+    out = _sdpa_split(q_l, ck_l, cv_l, mask, cfg.attn_softcap, mesh, sspec)
+    return _global(out.reshape(out.shape[0], 1, -1), mesh, (bspec, None, None))
+
+
+def _sdpa_split(q, k, v, mask, cap: float, mesh, axes):
+    """:func:`_sdpa` of this rank's block of the KV sequence, combined
+    with the other blocks over ``mesh``'s ``axes``: the global max of the scores
+    (``all_reduce`` MAX; no gradient flows through it, the softmax does not
+    depend on it), then the sums of the weights and of the weighted values."""
+    import torch.distributed as dist
+
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    scores = softcap(scores * scale, cap)
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    m = scores.detach().amax(dim=-1, keepdim=True)
+    for a in axes:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    e = torch.exp(scores - m)
+    den = e.sum(dim=-1, keepdim=True)
+    for a in axes:
+        den = psum(den, a)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", (e / den).to(v.dtype), v)
+    for a in axes:
+        out = psum(out, a)
+    return out
 
 
 def embedding_lookup(table, tokens):
@@ -553,7 +810,7 @@ def moe(x, p: MoE, cfg: ModelConfig):
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         outs = []
         for tc in tokens.reshape(nc, (bl * sl) // nc, d):
-            oc, ac = checkpoint(body, tc, use_reentrant=False)
+            oc, ac = checkpoint(bound_to_rules(body), tc, use_reentrant=False)
             aux = aux + ac
             outs.append(oc)
         out = torch.stack(outs).reshape(bl * sl, d)

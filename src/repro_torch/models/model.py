@@ -35,7 +35,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.context import constrain
+from repro_torch.dist.context import bound_to_rules, constrain, get_rules, psum
 
 from . import layers as L
 from . import rglru as RG
@@ -180,6 +180,21 @@ def _apply_block(x, bp: Block, kind, cfg, positions, cache=None, cache_pos=None,
     raise ValueError(kind)
 
 
+def _roll_seq(x, shift: int):
+    """``torch.roll`` along dim 1.  A DTensor rolls each block with dim 1
+    whole (gathered first where it is split): torch 2.11's DTensor has no
+    placement rule for ``roll``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return torch.roll(x, shift, dims=1)
+    mesh = x.device_mesh
+    placements = [Replicate() if p.is_shard(1) else p for p in x.placements]
+    x = x.redistribute(mesh, placements)
+    return DTensor.from_local(torch.roll(x.to_local(), shift, dims=1), mesh, placements,
+                              run_check=False)
+
+
 def _prep_train_cache(kind, cfg, kv, max_seq):
     """Convert full-sequence block state into a decode cache slice (prefill)."""
     if kind in _ATTN_KINDS:
@@ -191,11 +206,7 @@ def _prep_train_cache(kind, cfg, kv, max_seq):
             # keep the last sc entries, rolled so that the entry for position
             # p sits at index p % sc -- decode's ring indexing then lines up
             shift = s % sc
-            return (
-                torch.roll(k[:, -sc:], shift, dims=1),
-                torch.roll(v[:, -sc:], shift, dims=1),
-                torch.roll(pos[:, -sc:], shift, dims=1),
-            )
+            return tuple(_roll_seq(t[:, -sc:], shift) for t in (k, v, pos))
         pad = sc - s
         return (
             nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
@@ -238,6 +249,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat(body, policy: str):
     """``body`` under activation checkpointing: ``"full"`` keeps only its
     inputs, ``"dots"`` also the outputs of its matrix products."""
+    body = bound_to_rules(body)  # recomputed on the backward pass's thread
     if policy == "full":
         return functools.partial(checkpoint, body, use_reentrant=False)
     if policy == "dots":
@@ -307,18 +319,42 @@ def logits_from_hidden(params: LM, cfg: ModelConfig, h):
     return constrain(_mask_pad_vocab(logits, cfg), "batch", None, "vocab")
 
 
-def _vocab_whole(logits):
-    """``logits`` with the vocab dim whole on every rank.  DTensor's gather
-    along a sharded dim leaves a masked partial sum that the next op fails
-    to reduce (torch 2.13: ``IndexError`` in ``MaskBuffer.apply_mask``), so
-    a vocab-sharded DTensor is gathered over its vocab first."""
-    from torch.distributed.tensor import DTensor, Replicate
+def _token_nll(logits, labels):
+    """Per-token ``logsumexp(logits) - logits[label]`` ``[B, S]`` in float32.
 
-    if not isinstance(logits, DTensor):
-        return logits
-    vocab = logits.ndim - 1
-    placements = [Replicate() if p.is_shard(vocab) else p for p in logits.placements]
-    return logits.redistribute(logits.device_mesh, placements)
+    Under sharding rules it runs per rank (Megatron's vocab-parallel
+    cross-entropy): each rank its batch rows and its block of the vocab, the
+    log-sum-exp from a global max (an ``all_reduce`` MAX, no gradient: the
+    result does not depend on it) and a sum over 'model', the label's logit
+    from the rank whose block holds it.  No rank ever holds a row of the
+    whole vocab: DTensor's own gather along a split vocab gathers the
+    logits whole (the whole vocab, float32, for every token of a chunk), and
+    its backward makes zeros of the global shape on every rank."""
+    rules = get_rules()
+    if rules is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        return logz - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    import torch.distributed as dist
+
+    mesh = rules.mesh
+    tp = rules.model_axis
+    bspec = L._batch_spec(rules, logits.shape[0])
+    vspec = L._tp_spec(rules, logits.shape[-1])  # the model axis when it splits the vocab
+    lg = L._local(logits, mesh, (bspec, None, vspec))
+    lb = L._local(labels, mesh, (bspec, None)).long()
+    if vspec is None:
+        logz = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, lb[..., None])[..., 0]
+    else:
+        n = lg.shape[-1]
+        m = lg.detach().amax(dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(tp))
+        logz = torch.log(psum(torch.exp(lg - m).sum(dim=-1), tp)) + m[..., 0]
+        idx = lb - mesh.get_local_rank(tp) * n
+        mine = (idx >= 0) & (idx < n)
+        ll = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        ll = psum(torch.where(mine, ll, torch.zeros_like(ll)), tp)
+    return L._global(logz - ll, mesh, (bspec, None))
 
 
 def chunked_ce_loss(params: LM, cfg: ModelConfig, h, labels, mask=None, chunk: int = 1024):
@@ -339,15 +375,13 @@ def chunked_ce_loss(params: LM, cfg: ModelConfig, h, labels, mask=None, chunk: i
     def chunk_loss(hc, lc, mc):
         logits = L.softcap(L._mm(hc, w).float(), cfg.logit_softcap)
         logits = constrain(_mask_pad_vocab(logits, cfg), "batch", None, "vocab")
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(_vocab_whole(logits), -1, lc[..., None].long())[..., 0]
-        return torch.sum((logz - ll) * mc), torch.sum(mc)
+        return torch.sum(_token_nll(logits, lc) * mc), torch.sum(mc)
 
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, n * chunk, chunk):
         piece = slice(lo, lo + chunk)
-        l, c = checkpoint(chunk_loss, h[:, piece], labels[:, piece], mask[:, piece],
-                          use_reentrant=False)
+        l, c = checkpoint(bound_to_rules(chunk_loss), h[:, piece], labels[:, piece],
+                          mask[:, piece], use_reentrant=False)
         tot, cnt = tot + l, cnt + c
     if s > n * chunk:
         l, c = chunk_loss(h[:, n * chunk:], labels[:, n * chunk:], mask[:, n * chunk:])

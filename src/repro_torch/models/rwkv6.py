@@ -20,9 +20,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.context import constrain
+from repro_torch.dist.context import constrain, get_rules
 
-from .layers import Init, _einsum, _mm, rms_norm
+from . import layers as L
+from .layers import (
+    Init,
+    _einsum,
+    _mm,
+    _pin_grad,
+    _split_heads,
+    _whole_unless_divides,
+    rms_norm,
+)
 
 LORA_DIM = 32
 
@@ -114,6 +123,24 @@ def wkv_chunked(r, k, v, logw, u, state, chunk: int = 32):
     return out[:, :s].to(r.dtype), s0
 
 
+def _wkv_per_rank(fn, r, k, v, logw, u, state):
+    """``fn`` (``wkv_chunked`` / ``wkv_scan``); under sharding rules on each
+    rank's batch rows and heads, as the attention's (each head's
+    recurrence reads only its own r, k, v, decay and state), since
+    DTensor's own propagation through its einsums fails once heads are
+    split (they merge the split heads into the batch of a product)."""
+    rules = get_rules()
+    if rules is None:
+        return fn(r, k, v, logw, u, state)
+    mesh = rules.mesh
+    bspec = L._batch_spec(rules, r.shape[0])
+    hspec = L._tp_spec(rules, r.shape[2])
+    seq, st = (bspec, None, hspec, None), (bspec, hspec, None, None)
+    out, state = fn(*(L._local(t, mesh, seq) for t in (r, k, v, logw)),
+                    L._local(u, mesh, (hspec, None)), L._local(state, mesh, st))
+    return L._global(out, mesh, seq), L._global(state, mesh, st)
+
+
 def _group_norm(x, scale, eps):
     """Per-head normalisation of the wkv output (RWKV's GroupNorm)."""
     b, s, h, hd = x.shape
@@ -121,7 +148,9 @@ def _group_norm(x, scale, eps):
     mean = xf.mean(-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
     out = (xf - mean) * torch.rsqrt(var + eps)
-    return (out.reshape(b, s, h * hd) * scale.float()).to(x.dtype)
+    # the gradient comes back as the merged value is placed (a later op may
+    # split the merged dim where the heads do not divide)
+    return (_pin_grad(out.reshape(b, s, h * hd)) * scale.float()).to(x.dtype)
 
 
 def time_mix(x, p: RWKV, cfg: ModelConfig, state=None, shift_prev=None, chunked=True):
@@ -133,22 +162,23 @@ def time_mix(x, p: RWKV, cfg: ModelConfig, state=None, shift_prev=None, chunked=
         shift_prev = xin.new_zeros((b, d))
     xx = _token_shift(xin, shift_prev) - xin
     xxx = xin + xx * p.mu_x.to(xin.dtype).sum(0) / 5.0
-    m = torch.tanh(_mm(xxx, p.mix_A)).reshape(b, s, 5, LORA_DIM)
+    m = _whole_unless_divides(torch.tanh(_mm(xxx, p.mix_A)), 2, 5)
+    m = _pin_grad(m.reshape(b, s, 5, LORA_DIM))
     deltas = _einsum("bsli,lid->bsld", m, p.mix_B.to(xin.dtype))
     xw, xk, xv, xr, xg = (
         xin + xx * (p.mu_x[i].to(xin.dtype) + deltas[:, :, i, :]) for i in range(5)
     )
     dlog = p.w_bias.float() + _mm(torch.tanh(_mm(xw, p.w_A)), p.w_B).float()
     logw = -torch.exp(dlog)  # log decay, < 0
-    r = _mm(xr, p.wr).reshape(b, s, h, hd)
-    k = _mm(xk, p.wk).reshape(b, s, h, hd)
-    v = _mm(xv, p.wv).reshape(b, s, h, hd)
+    r = _split_heads(_mm(xr, p.wr), h, hd)
+    k = _split_heads(_mm(xk, p.wk), h, hd)
+    v = _split_heads(_mm(xv, p.wv), h, hd)
     g = F.silu(_mm(xg, p.wg))
-    logw = logw.reshape(b, s, h, hd)
+    logw = _split_heads(logw, h, hd)
     if state is None:
         state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
     fn = wkv_chunked if (chunked and s > 1) else wkv_scan
-    out, state = fn(r, k, v, logw, p.u, state)
+    out, state = _wkv_per_rank(fn, r, k, v, logw, p.u, state)
     out = _group_norm(out, p.ln_x, cfg.norm_eps).to(xin.dtype)
     out = _mm(out * g, p.wo)
     return constrain(out, "batch", "seq", None), state, xin[:, -1, :]

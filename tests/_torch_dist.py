@@ -352,3 +352,110 @@ def launch_worker(rank, world, d, argv):
         launch_train.main(argv)
     with open(os.path.join(d, f"launch_{rank}.txt"), "w") as f:
         f.write(buf.getvalue())
+
+
+# ---------------------------------------------------------------------------
+# attention per rank (4 x 2): forward, gradients, decode on a split cache
+# ---------------------------------------------------------------------------
+
+ATTN_ARCH, ATTN_BATCH, ATTN_SEQ, ATTN_CACHE = "qwen3-1.7b", 8, 32, 2048
+RWKV_ARCH, RWKV_SEED = "rwkv6-3b", 4
+
+
+def attention_decode_inputs() -> list:
+    """Decode steps as (tokens [B, 1] int32, pos): one position for the
+    batch (an int) across the boundary of the cache's two blocks of 1,024
+    slots over 'model', then per-slot positions on both sides of it."""
+    rng = np.random.default_rng(11)
+    per_slot = np.array([1030, 1020, 1040, 1010, 1050, 1000, 1060, 990], np.int32)
+    steps = [1022, 1023, 1024, 1025, per_slot, per_slot + 1]
+    return [(rng.integers(0, 512, (ATTN_BATCH, 1)).astype(np.int32), p) for p in steps]
+
+
+def h_and_grads(model, cfg, batch, remat: bool = False):
+    """Hidden states and the gradient of ``sum(h * w)`` (``w`` from
+    ``loss_weights``) as full numpy arrays keyed by parameter name."""
+    from repro_torch.models import forward
+    from repro_torch.train.step import _plain
+
+    h, _, _ = forward(model, cfg, batch, remat=remat)
+    named = list(model.named_parameters())
+    f = (h * loss_weights(tuple(h.shape), 5)).sum()
+    grads = torch.autograd.grad(f, [p for _, p in named], allow_unused=True)
+    out = {}
+    for (name, p), g in zip(named, grads):
+        if g is None:
+            g = torch.zeros_like(p)
+        if hasattr(g, "full_tensor"):
+            g = g.redistribute(p.device_mesh, p.placements).full_tensor()
+        out[name] = g.detach().numpy()
+    return _plain(h).detach().numpy(), out
+
+
+def run_decode(model, cfg, caches):
+    """``attention_decode_inputs()`` through ``decode_step``: the logits of
+    every step and the final caches (full arrays, one tuple a block)."""
+    from repro_torch.models import decode_step
+    from repro_torch.train.step import _plain
+
+    logits = []
+    with torch.no_grad():
+        for tokens, pos in attention_decode_inputs():
+            pos = pos if isinstance(pos, int) else torch.from_numpy(pos)
+            lg, caches = decode_step(model, cfg, caches, torch.from_numpy(tokens), pos)
+            logits.append(_plain(lg).numpy())
+    full = [tuple(_plain(t).numpy() for t in c) for c in caches]
+    return np.stack(logits), full
+
+
+def attention_worker(rank, world, d):
+    """qwen3-1.7b reduced from the reference's weights under 4 x 2 rules
+    with the sequence split (``seq_sharded``, as the dry run): the forward
+    and its gradients (4 heads, 2 KV heads: both split over 'model'), and
+    decode on a cache placed by ``cache_shardings`` (batch over 'data', its
+    2,048 slots over 'model'); rwkv6-3b reduced's forward (remat) and
+    gradients, its recurrence per rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.data import arch_batch
+    from repro_torch.dist.context import ShardingRules, use_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (
+        batch_shardings,
+        cache_shardings,
+        param_shardings,
+        place,
+    )
+    from repro_torch.models import init_cache, init_params
+
+    cfg = get_config(ATTN_ARCH, reduced=True)
+    mesh = make_host_mesh(data=4, model=2, device="cpu")
+    out = {}
+    with use_rules(ShardingRules(mesh, batch_axes=("data",), seq_sharded=True)):
+        model = lm_params_from_reference(load_tree(os.path.join(d, "attn_params.npz")), cfg,
+                                         "cpu")
+        model.requires_grad_(True)
+        place(model, param_shardings(model, mesh, cfg))
+        batch = arch_batch(cfg, ATTN_BATCH, ATTN_SEQ, "train", seed=0, device="cpu")
+        batch = place(batch, batch_shardings(batch, mesh, ATTN_BATCH))
+        h, g_h = h_and_grads(model, cfg, batch)
+        out["train"] = {"h": h, "g_h": g_h}
+        caches = init_cache(cfg, ATTN_BATCH, ATTN_CACHE, torch.float32, "cpu")
+        caches = place(caches, cache_shardings(caches, mesh, cfg, ATTN_BATCH))
+        split_dims = [p.dim if p.is_shard() else None for p in caches[0][0].placements]
+        logits, full = run_decode(model, cfg, caches)
+        out["decode"] = {"logits": logits,
+                         "cache": {str(i): {"k": c[0], "v": c[1], "pos": c[2]}
+                                   for i, c in enumerate(full)}}
+        # RWKV's recurrence per rank (its heads split over 'model' as well)
+        rcfg = get_config(RWKV_ARCH, reduced=True)
+        rmodel = init_params(rcfg, RWKV_SEED, device="cpu")
+        rmodel.requires_grad_(True)
+        place(rmodel, param_shardings(rmodel, mesh, rcfg))
+        rbatch = arch_batch(rcfg, ATTN_BATCH, ATTN_SEQ, "train", seed=3, device="cpu")
+        rbatch = place(rbatch, batch_shardings(rbatch, mesh, ATTN_BATCH))
+        h, g_h = h_and_grads(rmodel, rcfg, rbatch, remat=True)
+        out["rwkv"] = {"h": h, "g_h": g_h}
+    if rank == 0:
+        save_tree(os.path.join(d, "attention.npz"), out)
+        _write_json(os.path.join(d, "attention.json"), {"cache_split_dims": split_dims})

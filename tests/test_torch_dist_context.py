@@ -179,3 +179,103 @@ def test_mixtral_without_rules_matches_reference():
     h, _, aux = forward(model, cfg, arch_batch(cfg, 4, 32, "train", seed=0, device="cpu"))
     np.testing.assert_allclose(h.numpy(), ref["plain"][0], atol=2e-4, rtol=1e-4)
     np.testing.assert_allclose(float(aux), ref["plain"][1], atol=2e-4, rtol=1e-4)
+
+
+def _backward_on_another_thread(loss) -> None:
+    """``loss.backward()`` run by a second thread, as the autograd engine
+    runs a CUDA graph's backward pass on its own device thread: that
+    thread gets the caller's dispatch state (DTensor's implicit
+    replication on), not its Python thread-locals (the rules)."""
+    import threading
+
+    errors = []
+
+    def run():
+        try:
+            DTensor._op_dispatcher._allow_implicit_replication = True
+            loss.backward()
+        except BaseException as e:  # noqa: BLE001 -- re-raised in the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+
+
+def test_bound_to_rules_reaches_a_recompute_on_another_thread():
+    """A checkpointed body is recomputed in the backward pass: bound to the
+    rules, it sees them there whichever thread runs it; unbound it does not."""
+    from torch.utils.checkpoint import checkpoint
+
+    rules = C.ShardingRules(AbstractMesh((1, 1), ("data", "model")))
+    for bind, want in ((True, [rules, rules]), (False, [rules, None])):
+        seen = []
+
+        def body(x):
+            seen.append(C.get_rules())
+            return torch.tanh(x) * 2.0
+
+        x = torch.ones(4, requires_grad=True)
+        with C.use_rules(rules):
+            y = checkpoint(C.bound_to_rules(body) if bind else body, x, use_reentrant=False)
+        _backward_on_another_thread(y.sum())
+        assert seen == want
+    assert C.bound_to_rules(body) is body  # no rules, nothing to carry
+
+
+def test_use_rules_nests_with_implicit_replication():
+    rules = C.ShardingRules(AbstractMesh((1, 1), ("data", "model")))
+    dispatcher = DTensor._op_dispatcher
+    assert not dispatcher._allow_implicit_replication
+    with C.use_rules(rules):
+        with C.use_rules(rules):
+            assert dispatcher._allow_implicit_replication
+        assert dispatcher._allow_implicit_replication and C.get_rules() is rules
+    assert not dispatcher._allow_implicit_replication and C.get_rules() is None
+
+
+def test_remat_recompute_runs_per_rank_branches_on_another_thread(one_rank, monkeypatch):
+    """qwen3 reduced under 1 x 1 rules with remat: the backward pass, run
+    by another thread, recomputes each layer through the per-rank
+    attention as the forward did, and the gradients equal those of a
+    backward pass on the test's thread."""
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    mesh = make_host_mesh(device="cpu")
+    calls = []
+    real = L._attend_per_rank
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(L, "_attend_per_rank", counted)
+    grads = []
+    for other_thread in (False, True):
+        calls.clear()
+        model = init_params_seeded(cfg)
+        place(model, param_shardings(model, mesh, cfg))
+        batch = place(arch_batch(cfg, 2, 16, "train", seed=0, device="cpu"),
+                      batch_shardings(arch_batch(cfg, 2, 16, "train", seed=0, device="cpu"),
+                                      mesh, 2))
+        with C.use_rules(C.ShardingRules(mesh)):
+            h, _, _ = forward(model, cfg, batch, remat=True)
+            loss = h.sum()
+            if not other_thread:
+                loss.backward()
+        if other_thread:
+            _backward_on_another_thread(loss)
+        assert len(calls) == 2 * cfg.n_layers  # the forward, then the recompute
+        grads.append({n: p.grad.full_tensor() for n, p in model.named_parameters()})
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=0, atol=0)
+
+
+def init_params_seeded(cfg):
+    from repro_torch.models import init_params
+
+    model = init_params(cfg, 0, device="cpu")
+    model.requires_grad_(True)
+    return model

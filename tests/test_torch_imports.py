@@ -30,7 +30,8 @@ def test_port_imports_neither_jax_nor_reference():
         "repro_torch.data.pipeline, repro_torch.ckpt, repro_torch.ckpt.manager, "
         "repro_torch.ft, repro_torch.ft.monitor, repro_torch.launch.train, "
         "repro_torch.dist.context, repro_torch.dist.compression, repro_torch.dist.pipeline, "
-        "repro_torch.launch.mesh, repro_torch.launch.sharding; "
+        "repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.launch.dryrun, "
+        "repro_torch.launch.hlo_analysis; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]; "
         "print('BAD', bad); sys.exit(1 if bad else 0)"
@@ -55,7 +56,8 @@ def test_sources_name_neither_jax_nor_reference():
                 "train/__init__.py", "train/optimizer.py", "train/step.py", "data/pipeline.py",
                 "ckpt/__init__.py", "ckpt/manager.py", "ft/__init__.py", "ft/monitor.py",
                 "launch/train.py", "dist/context.py", "dist/compression.py",
-                "dist/pipeline.py", "launch/mesh.py", "launch/sharding.py"):
+                "dist/pipeline.py", "launch/mesh.py", "launch/sharding.py",
+                "launch/dryrun.py", "launch/hlo_analysis.py"):
         assert os.path.join(SRC, "repro_torch", *new.split("/")) in files
     for path in files:
         with open(path) as f:
