@@ -1,0 +1,75 @@
+"""The port's paper-benchmark CLI: one section per paper table/figure.
+
+The counterpart of ``benchmarks/run.py`` for ``repro_torch``, on the CUDA
+card unless ``--device`` names another device.  Prints ``name,value,derived``
+CSV lines, row names as the reference's.  Sections, in the reference's
+order:
+  table5   -- row scan vs bitmap index (paper Table 5)
+  table7   -- circuit gate counts vs Tables 6/7/8 (paper-faithfulness check)
+  fig3     -- scaling with N and T (paper Figs 3/4)
+  table10  -- workload ranking across algorithm families (paper 5.9)
+  heatmap  -- SMALL-COMPETITIONS win/terrible rates (paper 5.8, App. C)
+  kernel   -- the circuit kernel's bytes model and launch shape + torch-op
+              wall-times
+  weighted -- weighted thresholds: replication vs binary decomposition
+  query    -- unified query API: composed-circuit vs leafwise, batching,
+              compiled-circuit cache (repro_torch.query)
+
+The reference's ``stream``, ``persist``, ``serve``, ``obs``, ``search`` and
+``roofline`` sections are not ported yet: naming one is an error that
+names it (and the CLI exits 1), not a skip.
+
+    PYTHONPATH=src:. python benchmarks/pt_run.py [section ...] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import traceback
+
+#: ported sections, in the reference's order, and the module of each
+SECTIONS = {
+    "table5": "pt_table5_rowscan",
+    "table7": "pt_table7_gates",
+    "fig3": "pt_fig3_scaling",
+    "table10": "pt_table10_workload",
+    "heatmap": "pt_heatmap_competitions",
+    "kernel": "pt_kernel_bench",
+    "weighted": "pt_weighted_bench",
+    "query": "pt_query_bench",
+}
+NOT_PORTED = ("stream", "persist", "serve", "obs", "search", "roofline")
+
+
+def run_section(section: str, device=None) -> list:
+    """The rows of one section; raises for a section the port lacks."""
+    if section in NOT_PORTED:
+        raise NotImplementedError(f"section {section!r} is not ported to repro_torch yet")
+    if section not in SECTIONS:
+        raise ValueError(f"unknown section {section}")
+    mod = importlib.import_module(f"benchmarks.{SECTIONS[section]}")
+    return mod.run(device=device)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("sections", nargs="*", default=list(SECTIONS))
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    failures = 0
+    for section in args.sections:
+        print(f"# --- {section} ---")
+        try:
+            rows = run_section(section, args.device)
+            for name, val, extra in rows:
+                print(f"{name},{val if isinstance(val, int) else round(float(val), 3)},{extra}")
+        except Exception:  # noqa: BLE001  (a section's failure is reported, the rest run)
+            failures += 1
+            traceback.print_exc()
+    if failures:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -199,6 +199,29 @@ What it does, one JSON object per line:
                        ``lm_train`` measured.  No process group is left,
                        ``max_memory_allocated`` rises under 64 MiB, and
                        neither kernel launches.
+22. ``examples``    -- run after ``search``: each ``examples/pt_*.py``
+                       (quickstart, serve_batch, similarity_search,
+                       train_lm) as a subprocess with its default arguments
+                       on the card (``TMPDIR`` a directory removed after);
+                       a non-zero exit fails the run; its wall seconds, its
+                       own verification lines and the K1 / K2 launches the
+                       child counted (K1 at least once over the four).
+23. ``paper``       -- after ``examples``: the eight ported sections of
+                       ``benchmarks/pt_run.py`` called in-process (table5,
+                       table7, fig3 / table10 / heatmap at the paper's
+                       ``card`` of 10,000, seed 1111, kernel, weighted,
+                       query), each raising on a mismatched word (every
+                       algorithm against SCANCOUNT on the CPU over the same
+                       bits, the list algorithms' ids against its set bits);
+                       the kernel crossover and the query sweeps (launch
+                       contract checked, wall-time contract reported); Fig
+                       3's N sweep at T = N/2 once more over the first 8-64
+                       columns of the main path's index (2**27 - 5 rows);
+                       the device ops a call of Fig 3's algorithms (N = 32)
+                       beside the kernels ``torch.profiler`` lists for one
+                       call in each of 5 sessions; Fig 3's slopes in N,
+                       Table 10's normalised totals and the heatmap's
+                       rates; K1 and K2 each launched.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line (each kernel's ``launches`` from its main path's own window: K1's
@@ -3176,6 +3199,235 @@ def masks_run(dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 22-23: the port's entry points -- the examples and the paper's tables
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("pt_quickstart.py", "pt_serve_batch.py", "pt_similarity_search.py", "pt_train_lm.py")
+EXAMPLE_TIMEOUT_S = 300
+#: run in a child process: the example named first as ``__main__`` with its
+#: default arguments, then the child's K1 / K2 launch counts into the file
+#: named second (written when the example raised too)
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "path, counts = sys.argv[1], sys.argv[2]\n"
+    "sys.argv = [path]\n"
+    "try:\n"
+    "    runpy.run_path(path, run_name='__main__')\n"
+    "finally:\n"
+    "    from repro_torch.kernels import threshold_ssum as K, tiled_scan as TK\n"
+    "    with open(counts, 'w') as f:\n"
+    "        json.dump({**K.launch_counts, **TK.launch_counts}, f)\n"
+)
+
+
+def phase_examples(smi: str) -> None:
+    """Each ``examples/pt_*.py`` as a subprocess with its default arguments
+    on the card, ``TMPDIR`` a directory removed afterwards (the quickstart's
+    snapshot, the training example's checkpoints)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="pt_examples_") as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), TMPDIR=tmp)
+        for name in EXAMPLES:
+            counts_path = os.path.join(tmp, f"{name}.launches.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", EXAMPLE_RUNNER, os.path.join(ROOT, "examples", name),
+                 counts_path], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=EXAMPLE_TIMEOUT_S)
+            seconds = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"{name} exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+            with open(counts_path) as f:
+                counts = json.load(f)
+            tally("examples", counts)
+            lines = proc.stdout.splitlines()
+            emit("examples", example=name, card=smi, seconds=seconds, launches=counts,
+                 verified=[line for line in lines if "OK" in line], last_line=lines[-1])
+    got = PHASE_LAUNCHES.get("examples", {})
+    check(got.get("circuit_eval", 0) > 0, f"the examples launched K1 no time: {got}")
+
+
+PAPER_CARD = 10_000  # the paper's 5.3 size (src/repro/data/paper_datasets.py:1-10), seed 1111
+PAPER_REAL_N = (8, 16, 32, 64)  # fig3 over the first N columns of the main path's index
+PAPER_REAL_END_WORDS = 2**16  # words at each end of a row held against scancount on the CPU
+
+
+def log_slope(points: dict) -> float:
+    """Least-squares slope of log(time) in log(N) over ``{N: seconds}``."""
+    ns = sorted(points)
+    return float(np.polyfit(np.log(ns), np.log([points[n] for n in ns]), 1)[0])
+
+
+def fig3_slopes(rows) -> dict:
+    """Per algorithm, the slope in N of its ``fig3_<alg>_N<n>_us`` rows."""
+    pts: dict = {}
+    for name, val, _ in rows:
+        if name.startswith("fig3_"):
+            alg, n = name[len("fig3_"):-len("_us")].rsplit("_N", 1)
+            pts.setdefault(alg, {})[int(n)] = val
+    return {alg: log_slope(p) for alg, p in pts.items() if len(p) > 1}
+
+
+def fig3_real_size(dense: torch.Tensor, dev) -> dict:
+    """Fig 3's N sweep at T = N/2 over the first 8-64 columns of the main
+    path's index (2**27 - 5 rows): every algorithm's words against the card's
+    streaming SCANCOUNT over the whole row, and that against SCANCOUNT on the
+    CPU over the first and last ``PAPER_REAL_END_WORDS`` words."""
+    from benchmarks.pt_fig3_scaling import sweep
+    from repro_torch.core.threshold import threshold
+    from repro_torch.device import to_numpy_u32
+
+    nw = dense.shape[1]
+    cases = [(n, n // 2) for n in PAPER_REAL_N if n <= dense.shape[0]]
+    ends = (slice(0, PAPER_REAL_END_WORDS), slice(nw - PAPER_REAL_END_WORDS, nw))
+    cpu_ends = [dense[:, e].contiguous().cpu() for e in ends]
+
+    def expect(n, t):
+        want = to_numpy_u32(threshold(dense[:n], t, "scancount_streaming"))
+        for e, cpu in zip(ends, cpu_ends):
+            bad = int((want[e] != to_numpy_u32(threshold(cpu[:n], t, "scancount"))).sum())
+            check(bad == 0, f"fig3 at N={n}: the card's scancount differs from the CPU's "
+                            f"in {bad} words of {e}")
+        return want
+
+    rows = [{"alg": alg, "n": n, "t": t, "us": dt * 1e6, "ops": k,
+             "bytes_bound_us": (n + 1) * nw * 4 / PEAK_BYTES_PER_S * 1e6}
+            for alg, n, t, dt, k in sweep(dense, cases, dev, expect)]
+    slopes = {}
+    for alg in {r["alg"] for r in rows}:
+        pts = {r["n"]: r["us"] for r in rows if r["alg"] == alg}
+        if len(pts) > 1:
+            slopes[alg] = log_slope(pts)
+    return {"rows_of_index": dense.shape[1] * 32, "n_words": nw, "cases": rows,
+            "slope": slopes}
+
+
+PAPER_PROFILE_SESSIONS = 5  # torch.profiler sessions of one call each, per algorithm
+
+
+def profiled_kernels(fn) -> int:
+    """Kernels ``torch.profiler`` lists on the card for one call of ``fn``
+    in a session of its own (copies and fills not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def kernels_against_ops(dev) -> dict:
+    """Fig 3's algorithms at N = 32, T = 16 on the paper's dataset: the
+    device ops a call the sections report (``ops_per_call``) beside the
+    kernels ``torch.profiler`` lists in ``PAPER_PROFILE_SESSIONS`` sessions
+    of one call each (reported, not checked: a session can lose events)."""
+    from benchmarks.pt_common import ops_per_call
+    from benchmarks.pt_fig3_scaling import ALGOS
+    from repro_torch.core.threshold import threshold
+    from repro_torch.data.paper_datasets import synthetic_dataset
+    from repro_torch.device import to_words
+
+    packed, _, _ = synthetic_dataset("clustered", "dense", n_bitmaps=32, card=PAPER_CARD,
+                                     seed=1111, device=dev)
+    bm = to_words(packed, dev)
+    out = {}
+    for alg in ALGOS:
+        def call(alg=alg):
+            return threshold(bm, 16, alg)
+
+        call()
+        ops = ops_per_call(call)
+        sessions = [profiled_kernels(call) for _ in range(PAPER_PROFILE_SESSIONS)]
+        out[alg] = {"ops": ops, "profiler_kernels": sessions,
+                    "sessions_equal": sum(k == ops for k in sessions)}
+    return out
+
+
+def phase_paper(dev, dense: torch.Tensor, smi: str) -> None:
+    """The eight ported sections' ``run()`` in-process (fig3 / table10 /
+    heatmap at the paper's ``card``), the kernel crossover, the query
+    sweeps, and Fig 3 at real size.  Every section raises on a mismatched
+    word (each algorithm against SCANCOUNT on the CPU, the list algorithms'
+    ids against its set bits); the crossover's launch contract is checked
+    here, its wall-time contract reported (``contract_misses``); the device
+    ops a call the sections report beside ``torch.profiler``'s kernels."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)  # the benchmarks package
+    from benchmarks import pt_fig3_scaling as F3
+    from benchmarks import pt_heatmap_competitions as HM
+    from benchmarks import pt_kernel_bench as KB
+    from benchmarks import pt_query_bench as QB
+    from benchmarks import pt_table5_rowscan as T5
+    from benchmarks import pt_table7_gates as T7
+    from benchmarks import pt_table10_workload as T10
+    from benchmarks import pt_weighted_bench as WB
+
+    torch.cuda.empty_cache()
+    sections = (
+        ("table5", lambda: T5.run(device=dev)),
+        ("table7", lambda: T7.run(device=dev)),
+        ("fig3", lambda: F3.run(card=PAPER_CARD, device=dev)),
+        ("table10", lambda: T10.run(card=PAPER_CARD, device=dev)),
+        ("heatmap", lambda: HM.run(card=PAPER_CARD, device=dev)),
+        ("kernel", lambda: KB.run(device=dev)),
+        ("weighted", lambda: WB.run(device=dev)),
+        ("query", lambda: QB.run(device=dev)),
+    )
+    got = {}
+    for name, fn in sections:
+        zero_counts()
+        t0 = time.perf_counter()
+        got[name] = fn()
+        torch.cuda.synchronize()
+        emit("paper", section=name, card=smi, seconds=time.perf_counter() - t0,
+             launches=read_counts("paper"), rows=[list(r) for r in got[name]])
+    exact = {name: val for name, val, _ in got["table7"]}["table8_ssum_exact_rows"]
+    check(exact == 8, f"Table 8's sideways sums: {exact} of 8 rows exact")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    crossover = KB.tiled_crossover(device=dev)
+    batched = KB.batched_launch_collapse(device=dev)
+    shards, sparsity = QB.shard_sweep(device=dev), QB.sparsity_sweep(device=dev)
+    counts = read_counts("paper")
+    check(batched["launches"] <= 2, f"the batched multi-residual query: {batched}")
+    for row in crossover:
+        check(not row["predicted_win"] or row["launches"] <= 2, f"crossover launches: {row}")
+    emit("paper_crossover", card=smi, seconds=time.perf_counter() - t0, launches=counts,
+         crossover=crossover, batched=batched, shards=shards, sparsity=sparsity,
+         contract_misses=[{k: row[k] for k in row if k in ("clean_fraction", "density",
+                                                            "tiled_us", "fused_us")}
+                          for row in crossover
+                          if row["assert_win"] and not row["tiled_us"] < row["fused_us"]])
+
+    zero_counts()
+    t0 = time.perf_counter()
+    real = fig3_real_size(dense, dev)
+    emit("paper_fig3_real", card=smi, seconds=time.perf_counter() - t0,
+         launches=read_counts("paper"), **real)
+
+    zero_counts()
+    kernels = kernels_against_ops(dev)
+    emit("paper_kernels", card=smi, launches=read_counts("paper"), n=32, t=16, algorithms=kernels)
+
+    rates = {name[len("heatmap_"):-len("_mean_subopt")]: {"mean_subopt": val, "rates": extra}
+             for name, val, extra in got["heatmap"] if name.endswith("_mean_subopt")}
+    emit("paper_summary", card=smi, paper_card=PAPER_CARD, fig3_slope=fig3_slopes(got["fig3"]),
+         fig3_real_slope=real["slope"],
+         table10_total_norm={name[len("table10_total_norm_"):]: val
+                             for name, val, _ in got["table10"]
+                             if name.startswith("table10_total_norm_")},
+         heatmap=rates, launches=PHASE_LAUNCHES.get("paper"))
+    total = PHASE_LAUNCHES.get("paper", {})
+    check(total.get("circuit_eval", 0) > 0 and total.get("tiled_block", 0) > 0,
+          f"the paper phase launched K1 and K2: {total}")
+    torch.cuda.empty_cache()  # the real-size SCANCOUNT's 40 GB go back before the LM phases
+
+
+# ---------------------------------------------------------------------------
 # phase 18: the LM serving path (models, ServeEngine) with slot queries on K1
 # ---------------------------------------------------------------------------
 
@@ -4251,6 +4503,7 @@ def main() -> int:
     timed("backends", phase_backends, idx)
     timed("serve", phase_serve, idx, cal, smi, args.seed)
     n_words_dense = idx.n_words
+    main_dense = idx.columns  # the paper phase's real-size Fig 3 reads its first 64 columns
     del idx
     tidx, tqueries, tmany, tcounts = timed("tiled_path", phase_tiled_path, dev,
                                            args.tiled_rows_log2, args.columns, args.seed)
@@ -4266,6 +4519,9 @@ def main() -> int:
     timed("serve_stream", phase_serve_stream, stream, smi, args.seed)
     del stream
     timed("search", phase_search, dev, args.search_rows_log2, smi, args.seed)
+    timed("examples", phase_examples, smi)
+    timed("paper", phase_paper, dev, main_dense, smi)
+    del main_dense
     timed("lm_serve", phase_lm_serve, dev, smi, args.seed)
     lm_train_measured = timed("lm_train", phase_lm_train, dev, smi, args.seed)
     timed("lm_mesh", phase_lm_mesh, dev, smi, args.seed)

@@ -41,7 +41,10 @@ def _scancount(bitmaps: torch.Tensor, t: int) -> torch.Tensor:
     n = bitmaps.shape[0]
     # counter dtype chosen like the paper's byte/short/int switch
     cdt = torch.int8 if n < 128 else torch.int16 if n < (1 << 15) else torch.int32
-    bits = ((bitmaps[:, :, None] >> _shifts(bitmaps.device)) & 1).to(cdt)
+    # one int32 temporary, masked in place: eager torch does not fuse the
+    # shift and the mask as XLA does, and at 64 x 2**22 words a second
+    # temporary is another 32 GiB on the card
+    bits = (bitmaps[:, :, None] >> _shifts(bitmaps.device)).bitwise_and_(1).to(cdt)
     counts = bits.sum(dim=0, dtype=cdt if n < 128 else torch.int32)
     return _pack_lanes(counts >= t)
 

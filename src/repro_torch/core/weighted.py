@@ -26,7 +26,7 @@ from typing import Sequence
 from . import circuits as C
 
 __all__ = ["build_weighted_threshold_circuit", "emit_weighted_ge",
-           "replication_gate_cost", "decomposed_gate_cost"]
+           "weighted_threshold_decomposed", "replication_gate_cost", "decomposed_gate_cost"]
 
 
 def emit_weighted_ge(c: C.Circuit, member_ids: Sequence[int], weights: Sequence[int],
@@ -74,6 +74,19 @@ def build_weighted_threshold_circuit(weights: Sequence[int], t: int) -> C.Circui
     c = C.Circuit(n, [], [])
     c.outputs = [emit_weighted_ge(c, list(range(n)), weights, t)]
     return c.optimized()
+
+
+def weighted_threshold_decomposed(bitmaps, weights: tuple, t: int, *, device=None):
+    """Evaluate the decomposed weighted threshold over packed bitmaps.
+
+    ``device`` is the transient index's device (default: the CUDA card).
+
+    .. deprecated:: shim over ``repro_torch.query`` (``Weighted(weights, t)``
+       through the compiled-circuit cache); prefer ``BitmapIndex.execute``.
+    """
+    from repro_torch.query import Weighted, execute
+
+    return execute(bitmaps, Weighted(tuple(int(w) for w in weights), int(t)), device=device)
 
 
 def replication_gate_cost(weights: Sequence[int], t: int) -> int:

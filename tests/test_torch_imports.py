@@ -1,4 +1,5 @@
 """The port imports torch and numpy only: never jax, never the reference."""
+import glob
 import os
 import re
 import subprocess
@@ -6,6 +7,9 @@ import sys
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src")
+#: the port's entry points beside the reference's: benchmarks/pt_*.py, examples/pt_*.py
+ENTRY_POINTS = sorted(glob.glob(os.path.join(ROOT, "benchmarks", "pt_*.py"))
+                      + glob.glob(os.path.join(ROOT, "examples", "pt_*.py")))
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -44,7 +48,8 @@ def test_port_imports_neither_jax_nor_reference():
 def test_sources_name_neither_jax_nor_reference():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)|from\s+repro\b(?!_)"
                      r"|import\s+repro\.|from\s+repro\.)", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "k1_ab.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "k1_ab.py"),
+             *ENTRY_POINTS]
     for base, _dirs, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
@@ -63,6 +68,32 @@ def test_sources_name_neither_jax_nor_reference():
         with open(path) as f:
             hit = pat.search(f.read())
         assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+def test_entry_points_import_neither_jax_nor_reference():
+    """Every ``benchmarks/pt_*.py`` and ``examples/pt_*.py`` imports (its
+    ``main`` not run) with neither jax nor the reference package loaded."""
+    names = [os.path.relpath(p, ROOT) for p in ENTRY_POINTS]
+    assert len([n for n in names if n.startswith("benchmarks")]) >= 10
+    assert sorted(n for n in names if n.startswith("examples")) == [
+        os.path.join("examples", f"pt_{x}.py")
+        for x in ("quickstart", "serve_batch", "similarity_search", "train_lm")]
+    code = (
+        "import importlib, importlib.util, os, sys\n"
+        f"for rel in {names!r}:\n"
+        "    if rel.startswith('benchmarks'):\n"
+        "        importlib.import_module('benchmarks.' + os.path.basename(rel)[:-3])\n"
+        "    else:\n"
+        "        spec = importlib.util.spec_from_file_location('_ex', rel)\n"
+        "        spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'repro' or m.startswith('repro.')]\n"
+        "print('BAD', bad); sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, ROOT]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_importing_the_port_builds_nothing():
