@@ -14,10 +14,32 @@ order:
   weighted -- weighted thresholds: replication vs binary decomposition
   query    -- unified query API: composed-circuit vs leafwise, batching,
               compiled-circuit cache (repro_torch.query)
+  stream   -- streaming update engine: delta apply + view refresh vs full
+              rebuild, compaction amortization (repro_torch.stream; smoke
+              sizes)
+  persist  -- on-disk format: snapshot size vs density, cold-load-to-
+              first-query vs rebuild, WAL replay throughput
+              (repro_torch.persist; scratch snapshots in a temp dir,
+              removed on exit)
+  serve    -- multi-client serving front-end: coalesced QPS vs sequential
+              across client counts, cache/dedup/shed rates, batch-size
+              histogram, plan-memo + calibration counters
+              (repro_torch.serve; smoke sizes and contracts)
+  obs      -- observability overhead: metrics+tracing ON vs OFF per-query
+              cost, disabled-site cost, drift sample counts, Prometheus
+              scrape lint (repro_torch.obs; smoke sizes and contracts)
+  search   -- similarity search + windowed analytics: bitmap candidate
+              generation raced vs MergeOpt / DivideSkip / WHEAP at the same
+              T, adaptive top-k, window refresh words-touched vs the
+              touched-tiles bound (repro_torch.search; smoke sizes and
+              contract)
+  roofline -- three-term roofline per dry-run cell against one H100's
+              peaks (reads artifacts/pt_dryrun from ``python -m
+              repro_torch.launch.dryrun``; runs nothing on a device)
 
-The reference's ``stream``, ``persist``, ``serve``, ``obs``, ``search`` and
-``roofline`` sections are not ported yet: naming one is an error that
-names it (and the CLI exits 1), not a skip.
+Artifacts go to ``artifacts/pt_bench/`` (``artifacts/pt_roofline.md`` for
+the roofline table).  A section that raises is reported with its
+traceback, the others still run, and the CLI exits 1.
 
     PYTHONPATH=src:. python benchmarks/pt_run.py [section ...] [--device cpu]
 """
@@ -37,17 +59,29 @@ SECTIONS = {
     "kernel": "pt_kernel_bench",
     "weighted": "pt_weighted_bench",
     "query": "pt_query_bench",
+    "stream": "pt_stream_bench",
+    "persist": "pt_persist_bench",
+    "serve": "pt_serve_bench",
+    "obs": "pt_obs_bench",
+    "search": "pt_search_bench",
+    "roofline": "pt_roofline",
 }
-NOT_PORTED = ("stream", "persist", "serve", "obs", "search", "roofline")
+#: the sections the reference's CLI runs at their ``--smoke`` shapes
+SMOKE_SECTIONS = ("stream", "persist", "serve", "obs", "search")
 
 
 def run_section(section: str, device=None) -> list:
-    """The rows of one section; raises for a section the port lacks."""
-    if section in NOT_PORTED:
-        raise NotImplementedError(f"section {section!r} is not ported to repro_torch yet")
+    """The rows of one section; raises ``ValueError`` for an unknown one."""
     if section not in SECTIONS:
         raise ValueError(f"unknown section {section}")
     mod = importlib.import_module(f"benchmarks.{SECTIONS[section]}")
+    if section == "roofline":
+        rows, table = mod.run()
+        if table:
+            print(f"# roofline table -> {mod.write_markdown(table)}")
+        return rows
+    if section in SMOKE_SECTIONS:
+        return mod.run(smoke=True, device=device)
     return mod.run(device=device)
 
 

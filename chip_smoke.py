@@ -198,7 +198,10 @@ What it does, one JSON object per line:
                        peak beside the ``max_memory_allocated`` that
                        ``lm_train`` measured.  No process group is left,
                        ``max_memory_allocated`` rises under 64 MiB, and
-                       neither kernel launches.
+                       neither kernel launches.  ``lm_roofline``:
+                       ``benchmarks/pt_roofline.py`` over the three cells'
+                       records (one H100's published peaks): a row a cell,
+                       every term positive.
 22. ``examples``    -- run after ``search``: each ``examples/pt_*.py``
                        (quickstart, serve_batch, similarity_search,
                        train_lm) as a subprocess with its default arguments
@@ -222,6 +225,20 @@ What it does, one JSON object per line:
                        call in each of 5 sessions; Fig 3's slopes in N,
                        Table 10's normalised totals and the heatmap's
                        rates; K1 and K2 each launched.
+24. ``paper_subsystems`` -- after ``paper``: the five subsystem sections of
+                       ``benchmarks/pt_run.py`` (stream, persist, serve,
+                       obs, search), each section's ``collect`` at the
+                       reference's smoke shapes and at its FULL shapes
+                       (stream 128 columns x 4,096 tiles, 128 MiB on the
+                       card; persist 32 x 4,096 words; serve 24 x 4,096
+                       words, 1-16 clients of 200 requests; obs 24 x 8,192
+                       words, 400 queries; search 20,000 strings and a
+                       window of 12 series x 24 batches of 2,000 events);
+                       every correctness guard raises; a line per section
+                       and shape with its rows, seconds, K1 / K2 launches
+                       and the reference's wall-time contracts that miss
+                       (reported); calibration and the observability
+                       switch put back as found; K1 and K2 each launched.
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line (each kernel's ``launches`` from its main path's own window: K1's
@@ -3428,6 +3445,57 @@ def phase_paper(dev, dense: torch.Tensor, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the paper CLI's subsystem sections (stream, persist, serve, obs,
+# search), each at the reference's --smoke shapes and at its FULL shapes
+# ---------------------------------------------------------------------------
+
+SUBSYSTEM_SECTIONS = ("stream", "persist", "serve", "obs", "search")
+
+
+def phase_paper_subsystems(dev, smi: str) -> None:
+    """Each subsystem section's ``collect`` on the card at the reference's
+    smoke and FULL shapes: every correctness guard raises (words, counts,
+    WAL versions, the oracle, words bounds, drift, lint).  The reference's
+    wall-time contracts are evaluated on each payload and reported
+    (``contract_misses``), not checked.  The sections install a
+    calibration, switch observability on and clear the compiled cache;
+    the phase puts the calibration and the observability switch back as it
+    found them and leaves the cache cleared, as ``pt_run.py`` does (a memo:
+    later phases compile what they run)."""
+    import importlib
+
+    import repro_torch.obs as obs
+    from repro_torch.core.calibration import get_calibration, set_calibration
+    from repro_torch.query import clear_compiled_cache
+
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)  # the benchmarks package
+    saved_calibration, saved_obs = get_calibration(), obs.enabled()
+    clear_compiled_cache()
+    torch.cuda.empty_cache()
+    for name in SUBSYSTEM_SECTIONS:
+        mod = importlib.import_module(f"benchmarks.pt_{name}_bench")
+        for smoke in (True, False):
+            zero_counts()
+            t0 = time.perf_counter()
+            payload = mod.collect(smoke=smoke, device=dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts("paper_subsystems")
+            misses = [{k: c[k] for k in ("contract", "value", "limit")}
+                      for c in getattr(mod, "contracts", lambda _: [])(payload) if not c["ok"]]
+            emit("paper_subsystems", section=name, shape="smoke" if smoke else "full", card=smi,
+                 seconds=seconds, launches=counts,
+                 rows=[list(r) for r in mod.rows(payload)],
+                 contract_misses=misses)
+    set_calibration(saved_calibration)
+    (obs.enable if saved_obs else obs.disable)()
+    total = PHASE_LAUNCHES.get("paper_subsystems", {})
+    check(total.get("circuit_eval", 0) > 0 and total.get("tiled_block", 0) > 0,
+          f"the subsystem sections launched K1 and K2: {total}")
+
+
+# ---------------------------------------------------------------------------
 # phase 18: the LM serving path (models, ServeEngine) with slot queries on K1
 # ---------------------------------------------------------------------------
 
@@ -4427,6 +4495,25 @@ def lm_dryrun_accounting(dev, seed: int, cfg, measured: dict) -> dict:
     return out
 
 
+def lm_roofline(records: str, smi: str, n_cells: int) -> None:
+    """``benchmarks/pt_roofline.py`` over the dry run's records: one row a
+    cell, each term positive, against one H100's published peaks."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)  # the benchmarks package
+    from benchmarks import pt_roofline as RF
+
+    out, rows = RF.run(records)
+    emit("lm_roofline", card=smi, peaks={"card": RF.CARD, "flops_per_s": RF.PEAK_FLOPS,
+                                         "hbm_bytes_per_s": RF.HBM_BW,
+                                         "link_bytes_per_s": RF.LINK_BW},
+         rows=rows, lines=[list(r) for r in out])
+    check(len(rows) == n_cells, f"the roofline gave {len(rows)} rows for {n_cells} OK cells")
+    for r in rows:
+        # the terms are these counts over the peaks (rounded to the µs in the row)
+        check(min(r["hlo_flops"], r["hlo_bytes"], r["coll_bytes"]) > 0,
+              f"a roofline term is not positive: {r}")
+
+
 def phase_lm_dryrun(dev, smi: str, seed: int, measured: dict, cells=LM_DRYRUN_CELLS,
                     cfg=None) -> None:
     """The dry run's production cells on fake CUDA tensors and fake ranks,
@@ -4449,6 +4536,7 @@ def phase_lm_dryrun(dev, smi: str, seed: int, measured: dict, cells=LM_DRYRUN_CE
     zero_counts()
     with tempfile.TemporaryDirectory() as tmp:
         report["cells"] = [lm_dryrun_cell(a, s, m, dev, tmp, card_bytes) for a, s, m in cells]
+        lm_roofline(tmp, smi, len(cells))
     report["accounting"] = lm_dryrun_accounting(dev, seed, cfg or get_config(LM_ARCH), measured)
     counts = read_counts("lm_dryrun")
     torch.cuda.synchronize()
@@ -4522,6 +4610,7 @@ def main() -> int:
     timed("examples", phase_examples, smi)
     timed("paper", phase_paper, dev, main_dense, smi)
     del main_dense
+    timed("paper_subsystems", phase_paper_subsystems, dev, smi)
     timed("lm_serve", phase_lm_serve, dev, smi, args.seed)
     lm_train_measured = timed("lm_train", phase_lm_train, dev, smi, args.seed)
     timed("lm_mesh", phase_lm_mesh, dev, smi, args.seed)

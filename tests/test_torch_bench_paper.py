@@ -1,6 +1,6 @@
 """The port's paper benchmarks (``benchmarks/pt_*.py``: table5, table7,
-fig3, table10, heatmap, weighted, and the ``pt_run.py`` CLI) against the
-reference's (``benchmarks/*.py``).
+fig3, table10, heatmap, weighted, and the ``pt_run.py`` CLI over all
+fourteen sections) against the reference's (``benchmarks/*.py``).
 
 Deterministic rows are held equal name for name and value for value
 (table7, weighted, the gate counts, RBMRG's work fraction); timed rows
@@ -87,18 +87,41 @@ def test_pt_run_table7_prints_the_reference_rows():
     assert "table8_ssum_exact_rows,8,of 8" in port.stdout
 
 
-def test_pt_run_names_a_section_not_ported_and_exits_1():
-    out = subprocess.run([sys.executable, "benchmarks/pt_run.py", "table7", "stream",
+def test_pt_run_unknown_section_exits_1_after_the_others():
+    out = subprocess.run([sys.executable, "benchmarks/pt_run.py", "nosuch", "table7",
                           "--device", "cpu"], cwd=ROOT, env=ENV, capture_output=True, text=True)
     assert out.returncode == 1
     assert "table8_ssum_exact_rows,8,of 8" in out.stdout  # the other sections still ran
-    assert "section 'stream' is not ported" in out.stderr
+    assert "ValueError: unknown section nosuch" in out.stderr
 
 
 def test_pt_run_sections_in_the_reference_order():
-    ref_order = ["table5", "table7", "fig3", "table10", "heatmap", "kernel", "weighted", "query"]
+    # benchmarks/run.py's default list, in its order
+    ref_order = ["table5", "table7", "fig3", "table10", "heatmap", "kernel", "weighted", "query",
+                 "stream", "persist", "serve", "obs", "search", "roofline"]
     assert list(TRUN.SECTIONS) == ref_order
-    assert set(TRUN.NOT_PORTED) == {"stream", "persist", "serve", "obs", "search", "roofline"}
+    assert not hasattr(TRUN, "NOT_PORTED")
+    with open(os.path.join(ROOT, "benchmarks", "run.py")) as f:
+        assert repr(ref_order).replace("'", '"') in f.read()
+
+
+def test_pt_run_stream_persist_roofline_print_the_reference_rows(tmp_path):
+    out = subprocess.run([sys.executable, "benchmarks/pt_run.py", "stream", "persist", "roofline",
+                          "--device", "cpu"], cwd=ROOT, env=ENV, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    names = [line.split(",", 1)[0] for line in out.stdout.splitlines()
+             if not line.startswith("#")]
+    import benchmarks.persist_bench as RP
+    import benchmarks.stream_bench as RS
+
+    stream = {"update_vs_rebuild": RS.update_vs_rebuild(smoke=True),
+              "view_refresh": RS.view_refresh(smoke=True),
+              "compaction": RS.compaction_curve(smoke=True)}
+    want = _names(RS.run(smoke=True, payload=stream)) + _names(RP.run(smoke=True,
+                                                                      payload=RP.collect(True)))
+    assert names == want
+    assert out.stdout.splitlines()[0] == "# --- stream ---"
+    assert "# --- roofline ---" in out.stdout
 
 
 # ------------------------------------------------------------- weighted --
@@ -269,7 +292,8 @@ def test_heatmap_rows_name_the_reference_rows(monkeypatch):
 # --------------------------------------------------- the device rule --
 
 
-@pytest.mark.parametrize("section", list(TRUN.SECTIONS))
+# roofline reads the dry run's records and runs nothing on a device
+@pytest.mark.parametrize("section", [s for s in TRUN.SECTIONS if s != "roofline"])
 def test_sections_refuse_to_run_without_a_card(section):
     if torch.cuda.is_available():  # decided inside the test, not at import
         pytest.skip("a CUDA device is present: this checks the no-card refusal")
