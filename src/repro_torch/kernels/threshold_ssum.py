@@ -50,6 +50,7 @@ from repro_torch.core.bytecode import (
     encode_program,
 )
 from repro_torch.device import WORD_DTYPE, resolve_device, to_words
+from repro_torch.obs import trace as _trace
 
 from . import _build
 
@@ -120,9 +121,12 @@ class _Program:
         return got
 
 
-def _program_for(circuit: _ckt.Circuit, rows) -> _Program:
+def _program_for(circuit: _ckt.Circuit, rows, sp=_trace.NULL_SPAN) -> _Program:
+    """The cached encoded program of ``circuit`` (reading ``rows``); ``sp``
+    is told whether the cache hit."""
     key = (circuit_structural_key(circuit), rows)
     p = _CIRCUIT_RUNNERS.get(key)
+    sp.set(cache="miss" if p is None else "hit")
     if p is None:
         if len(_CIRCUIT_RUNNERS) >= _CIRCUIT_RUNNERS_CAP:
             _CIRCUIT_RUNNERS.clear()
@@ -318,11 +322,13 @@ def run_circuit_cached(bitmaps: torch.Tensor, circuit: _ckt.Circuit, *, rows=Non
     """
     del block_words
     rows = _check(bitmaps, circuit, rows)
-    p = _program_for(circuit, rows)
-    if bitmaps.is_cuda:
-        out = _circuit_eval_cuda(bitmaps, p)
-    else:
-        out = _run_program_plain(bitmaps, p.prog, p.outs, p.n_registers)
+    with _trace.span("program") as sp:
+        p = _program_for(circuit, rows, sp)
+    with _trace.span("launch", kernel="circuit_eval"):
+        if bitmaps.is_cuda:
+            out = _circuit_eval_cuda(bitmaps, p)
+        else:
+            out = _run_program_plain(bitmaps, p.prog, p.outs, p.n_registers)
     return out[0] if p.k == 1 else out
 
 

@@ -4,7 +4,11 @@ The port's copy of the reference's ``repro.obs``: the same metric names
 (``repro_*``), labels and fixed bucket edges, so dashboards and
 :func:`lint_prometheus` carry over.  Spans time the host: on a CUDA card
 an ``execute`` span measures planning and the enqueue of the kernels,
-not their device time (nothing in a span synchronises).
+not their device time (nothing in a span synchronises).  Each span is
+also a profiler range ``repro.<name>``, so a ``torch.profiler`` session
+puts the device work launched inside a span under its range; the port
+adds four spans the reference lacks (``program``, ``launch``, ``events``,
+``block``: K1's lookup and launch, the tiled route's two stages).
 
 One layer every subsystem reports into (the paper's words-touched cost
 accounting made operational):
@@ -50,7 +54,6 @@ from repro_torch.obs.trace import (
     NULL_SPAN,
     Span,
     current_span,
-    merge_span_trees,
     span,
 )
 
@@ -192,6 +195,6 @@ __all__ = [
     "SLOW_QUERIES", "Span", "SlowQueryLog", "counter", "current_span",
     "disable", "drift_samples", "dump", "dump_json", "enable", "enabled",
     "export_jsonl", "export_prometheus", "gauge", "histogram",
-    "last_trace", "lint_prometheus", "merge_span_trees", "record_drift",
+    "last_trace", "lint_prometheus", "record_drift",
     "reset", "span",
 ]

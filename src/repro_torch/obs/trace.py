@@ -14,20 +14,43 @@ running ``span("execute")`` nests automatically, including across the
 serving front-end's batcher thread (each thread/context gets its own
 stack).  When tracing is disabled, ``span()`` returns a shared no-op
 singleton: one branch, zero allocation.
+
+An open span is also a profiler range named ``repro.<span name>``, so a
+``torch.profiler`` session shows the spans on the device trace's clock:
+the ops and kernels launched inside a span nest under its range.  Outside
+a profiler session the range costs well under a microsecond.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from contextvars import ContextVar
+
+try:  # the fast range (no Python-side op dispatch); record_function is ~20x dearer
+    from torch._C._profiler import _RecordFunctionFast as _Range
+except ImportError:  # pragma: no cover - older torch
+    from torch.profiler import record_function as _Range
 
 enabled = False  # toggled by repro_torch.obs.enable()/disable()
 
 _CURRENT: ContextVar["Span | None"] = ContextVar("repro_obs_span", default=None)
 _ROOT_LISTENERS: list = []
+_REQUEST_IDS = itertools.count(1)
+_PREFIX = "repro."  # a span's profiler range is named _PREFIX + its name
 
 
 class Span:
-    __slots__ = ("name", "attrs", "children", "t0", "wall_s", "_token")
+    """One timed stage of a request.
+
+    ``t0`` is the start on the ``time.perf_counter`` clock and ``wall_s``
+    the length, so offsets between spans of one tree are host times.
+    ``rid`` is the request id: a process-wide counter drawn by the root
+    span and inherited by every descendant.  ``parent`` is the enclosing
+    span (None for a root).  Neither is an attribute: ``attrs`` hold only
+    what the request reports."""
+
+    __slots__ = ("name", "attrs", "children", "t0", "wall_s", "rid", "parent",
+                 "_token", "_range")
 
     def __init__(self, name: str, attrs: dict | None = None) -> None:
         self.name = name
@@ -35,7 +58,10 @@ class Span:
         self.children: list[Span] = []
         self.t0 = 0.0
         self.wall_s = 0.0
+        self.rid = 0
+        self.parent: Span | None = None
         self._token = None
+        self._range = None
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -45,14 +71,22 @@ class Span:
         parent = _CURRENT.get()
         if parent is not None:
             parent.children.append(self)
+            self.parent = parent
+            self.rid = parent.rid
+        else:
+            self.rid = next(_REQUEST_IDS)
         self._token = _CURRENT.set(self)
+        self._range = _Range(_PREFIX + self.name)
+        self._range.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         self.wall_s = time.perf_counter() - self.t0
+        self._range.__exit__(None, None, None)
+        self._range = None
         _CURRENT.reset(self._token)
-        if _CURRENT.get() is None:
+        if self.parent is None:
             for fn in _ROOT_LISTENERS:
                 fn(self)
 
@@ -135,11 +169,3 @@ def add_root_listener(fn) -> None:
     """Call *fn(root_span)* whenever a root span completes."""
     if fn not in _ROOT_LISTENERS:
         _ROOT_LISTENERS.append(fn)
-
-
-def merge_span_trees(name: str, roots: list) -> Span:
-    """Fold per-shard span trees under one synthetic parent (dist path)."""
-    out = Span(name)
-    out.children = [r for r in roots if isinstance(r, Span)]
-    out.wall_s = max((r.wall_s for r in out.children), default=0.0)
-    return out

@@ -49,6 +49,7 @@ from repro_torch.core.circuits import (
 )
 from repro_torch.core.planner import _MAX_EXACT_SIGNATURES as _MAX_SIGNATURES
 from repro_torch.device import WORD_DTYPE, to_numpy_u32, to_words
+from repro_torch.obs import trace as _trace
 
 from .containers import (
     CONT_DENSE,
@@ -314,15 +315,18 @@ def run_tiled_circuit(
 
 def _execute_scan_plan(plan, info):
     """Dispatch a (possibly cached) scan plan: broadcast the constant base,
-    run the staged dispatches, clip the padded tail."""
+    run the staged dispatches (an ``events`` and a ``block`` span each),
+    clip the padded tail."""
     from repro_torch.kernels import tiled_scan
 
     k, n_sel, tw, nw = plan["k"], plan["n_sel"], plan["tw"], plan["nw"]
     buf = plan["base"][:, :, None].expand(k, n_sel, tw).contiguous()
     if plan["event"] is not None:
-        tiled_scan.event_runner(buf, plan["event"])
+        with _trace.span("events"):
+            tiled_scan.event_runner(buf, plan["event"])
     if plan["block"] is not None:
-        tiled_scan.block_runner(buf, plan["block"])
+        with _trace.span("block"):
+            tiled_scan.block_runner(buf, plan["block"])
     return _result(buf, k, nw, plan["restricted"]), info
 
 

@@ -48,6 +48,30 @@ def clean_fraction_bits(n, clean_fraction, seed, n_tiles=5, tail_bits=700):
     return bits
 
 
+#: spans the port opens where the reference has none: K1's program lookup
+#: and launch, and the tiled route's two device stages
+PORT_ONLY_SPANS = frozenset({"program", "launch", "events", "block"})
+
+
+def reference_view(tree, folded=None) -> tuple:
+    """An untimed span tree (a ``Span`` or its ``to_dict()``) as ``(name,
+    attrs, children)`` without the port-only spans: their children are
+    hoisted into their place, and their names added to ``folded``."""
+    if isinstance(tree, dict):
+        name, attrs, children = tree["name"], dict(tree["attrs"]), tree["children"]
+    else:
+        name, attrs, children = tree.name, dict(tree.attrs), tree.children
+    out = []
+    for c in children:
+        sub = reference_view(c, folded)
+        if sub[0] in PORT_ONLY_SPANS:
+            if folded is not None:
+                folded.add(sub[0])
+            out.extend(sub[2])
+        else:
+            out.append(sub)
+    return (name, attrs, out)
+
 def container_mix_bits(n, seed, n_tiles=6, tail_bits=333):
     """Columns whose dirty tiles are a mix of sparse (a few bits), runny (a
     few long runs) and dense (35% random) content, plus clean tiles."""

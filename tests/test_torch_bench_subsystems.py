@@ -7,9 +7,10 @@ persist section's snapshot and WAL bytes and the snapshot files byte for
 byte; the serve section's query pool and request streams (canonical
 keys), the oracle (every pool query served equal to the reference's
 direct execution) and every request served, none shed; the obs section's
-last span tree without times, drift samples, Prometheus families and lint
-result; the search section's candidate counts and ids, top-k relaxations
-and verifications, and every window refresh's accounting.  Row names are
+last span tree without times (the port's own spans folded out), drift
+samples, Prometheus families and lint result; the search section's
+candidate counts and ids, top-k relaxations and verifications, and every
+window refresh's accounting.  Row names are
 equal for every section.  The reference's collection functions are
 called; where one writes a file its path is moved under ``tmp_path``, and
 the serve / obs sections run the reference's ``run(smoke=False)`` with
@@ -44,7 +45,7 @@ import repro.obs as robs  # noqa: E402
 import repro.search.similarity as r_similarity  # noqa: E402
 import repro_torch.obs as tobs  # noqa: E402
 import repro_torch.search.similarity as t_similarity  # noqa: E402
-from _torch_port import u32  # noqa: E402
+from _torch_port import reference_view, u32  # noqa: E402
 
 CPU = "cpu"
 _REF: dict = {}
@@ -261,7 +262,9 @@ def test_obs_trace_drift_and_exports_equal_reference(monkeypatch, tmp_path):
     assert _families(t_prom[-1]) == _families(r_prom[-1]) and _families(t_prom[-1])
     last = [json.loads(p.read_text().splitlines()[-1])["last_trace"]
             for p in (tmp_path / "pt_trace.jsonl", tmp_path / "trace.jsonl")]
-    assert _untimed(last[0]) == _untimed(last[1])
+    folded = set()  # the port-only spans of K1 (_torch_port.PORT_ONLY_SPANS)
+    assert reference_view(last[0], folded) == _untimed(last[1])
+    assert folded == {"program", "launch"}
     assert any(c["name"] == "plan" for c in last[0]["children"])
     assert _names(TO.rows(data)) == _names(ref_rows)
 

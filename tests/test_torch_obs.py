@@ -3,8 +3,11 @@
 The cases of ``tests/test_obs.py`` that need no server and no sharding,
 run on the port's index (``device="cpu"``), plus parity: the span trees of
 the port's and the reference's index for the same queries are equal in
-names and in every attribute that is not a time, and so are the kernel
-counter deltas of a tiled query and the exported metric families.
+names and in every attribute that is not a time (once the port's own
+spans -- ``program``, ``launch``, ``events``, ``block`` -- are folded out),
+and so are the kernel counter deltas of a tiled query and the exported
+metric families.  The port's spans are also profiler ranges, checked here
+under a CPU ``torch.profiler`` session.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import pytest
 
 import repro.obs as robs
 import repro_torch.obs as obs
-from _torch_port import TILE_BITS, u32
+from _torch_port import PORT_ONLY_SPANS, TILE_BITS, reference_view, u32
 from repro import query as RQ
 from repro_torch import query as TQ
 from repro_torch.convert import index_from_reference_arrays
@@ -275,26 +278,29 @@ def test_metric_families_carry_the_reference_names():
         assert name in obs.REGISTRY.snapshot()
 
 
-QUERIES = {
-    "planned_interval": (lambda Q: Q.Interval(2, 8), None),
-    "planned_threshold": (lambda Q: Q.Threshold(4), None),
-    "tiled_threshold": (lambda Q: Q.Threshold(4), "tiled_fused"),
-    "tiled_interval": (lambda Q: Q.Interval(3, 7), "tiled_fused"),
-    "fused_interval": (lambda Q: Q.Interval(2, 8), "fused"),
-    "circuit_composite": (lambda Q: Q.And(Q.Interval(2, 8), Q.Not(Q.Col("s3"))), "circuit"),
-    "looped": (lambda Q: Q.Threshold(3), "looped"),
-    "csvckt": (lambda Q: Q.Threshold(5), "csvckt"),
-    "rbmrg_block": (lambda Q: Q.Threshold(4), "rbmrg_block"),
-    "dsk": (lambda Q: Q.Threshold(9), "dsk"),
-    "wide_or": (lambda Q: Q.Threshold(1), None),
-    "column": (lambda Q: Q.Col("s2"), None),
+K1 = {"program", "launch"}  # the circuit kernel's lookup and launch
+QUERIES = {  # name: (query, backend, the port-only spans its tree holds)
+    "planned_interval": (lambda Q: Q.Interval(2, 8), None, K1),
+    "planned_threshold": (lambda Q: Q.Threshold(4), None, K1),
+    "tiled_threshold": (lambda Q: Q.Threshold(4), "tiled_fused", {"block"}),
+    "tiled_interval": (lambda Q: Q.Interval(3, 7), "tiled_fused", {"block"}),
+    "fused_interval": (lambda Q: Q.Interval(2, 8), "fused", K1),
+    "circuit_composite": (lambda Q: Q.And(Q.Interval(2, 8), Q.Not(Q.Col("s3"))), "circuit", K1),
+    "looped": (lambda Q: Q.Threshold(3), "looped", set()),
+    "csvckt": (lambda Q: Q.Threshold(5), "csvckt", set()),
+    "rbmrg_block": (lambda Q: Q.Threshold(4), "rbmrg_block", set()),
+    "dsk": (lambda Q: Q.Threshold(9), "dsk", set()),
+    "wide_or": (lambda Q: Q.Threshold(1), None, set()),
+    "column": (lambda Q: Q.Col("s2"), None, set()),
 }
 
 
 @pytest.mark.parametrize("name", list(QUERIES))
 def test_span_trees_equal_reference(pair, name):
+    """Equal trees once the port-only spans are folded out; those are
+    present exactly where the port runs K1 or the tiled stages."""
     ref, tor = pair
-    make, backend = QUERIES[name]
+    make, backend, port_spans = QUERIES[name]
     for cold in (True, False):  # compile miss, then the cached circuit
         if cold:
             RQ.clear_compiled_cache()
@@ -306,13 +312,19 @@ def test_span_trees_equal_reference(pair, name):
         robs.disable()
         obs.disable()
         assert np.array_equal(u32(got), np.asarray(want))
-        want_tree, got_tree = _untimed(robs.last_trace()), _untimed(obs.last_trace())
+        folded = set()
+        want_tree = _untimed(robs.last_trace())
+        got_tree = reference_view(obs.last_trace(), folded)
         assert got_tree == want_tree, (name, cold)
-        assert _python_values(got_tree)
+        assert folded == port_spans, (name, cold)
+        assert _python_values(_untimed(obs.last_trace()))
         assert robs.drift_samples() == obs.drift_samples()
 
 
-@pytest.mark.parametrize("backend", (None, "tiled_fused", "fused", "circuit", "looped"))
+MANY_PORT_SPANS = {None: K1, "tiled_fused": {"block"}, "fused": K1, "circuit": K1, "looped": set()}
+
+
+@pytest.mark.parametrize("backend", list(MANY_PORT_SPANS))
 def test_execute_many_span_trees_and_drift_equal_reference(pair, backend):
     ref, tor = pair
     RQ.clear_compiled_cache()
@@ -330,7 +342,9 @@ def test_execute_many_span_trees_and_drift_equal_reference(pair, backend):
     obs.disable()
     for g, w in zip(got, want):
         assert np.array_equal(u32(g), np.asarray(w))
-    assert _untimed(obs.last_trace()) == _untimed(robs.last_trace())
+    folded = set()
+    assert reference_view(obs.last_trace(), folded) == _untimed(robs.last_trace())
+    assert folded == MANY_PORT_SPANS[backend]
     assert obs.drift_samples() == robs.drift_samples()
     for fam in ("repro_query_words_touched", "repro_calibration_drift_ratio"):
         want_counts = {k: v["counts"] for k, v in robs.REGISTRY.snapshot()[fam]["samples"].items()}
@@ -378,3 +392,157 @@ def test_tiled_counter_deltas_equal_reference(tile_words):
     got = _kernel_counters(obs)
     assert got["repro_kernel_launches_total"].get("block", 0) > 0
     assert got["repro_kernel_launches_total"].get("event", 0) > 0
+
+
+# -- the port's own spans: where the work happens, on the profiler's clock -----
+
+def _names(sp) -> tuple:
+    return (sp.name, [_names(c) for c in sp.children])
+
+
+def _stage_bits():
+    """Mostly clean columns with three sparse tiles (the event stage) and
+    one dense tile (the block kernel) in each, so the planner goes tiled."""
+    rng = np.random.default_rng(1)
+    n, n_tiles = 8, 32
+    bits = np.zeros((n, n_tiles * TILE_BITS), bool)
+    for i in range(n):
+        for tj in (3, 7, 11):
+            bits[i, rng.integers(tj * TILE_BITS, (tj + 1) * TILE_BITS, 10)] = True
+        bits[i, 20 * TILE_BITS:21 * TILE_BITS] = rng.random(TILE_BITS) < 0.4
+    return bits
+
+
+@pytest.fixture(scope="module")
+def staged():
+    return TQ.BitmapIndex.from_dense(_stage_bits(), device="cpu")
+
+
+def _traced(index, q, runs=2):
+    """The span tree of the last of ``runs`` planner-routed runs of ``q``."""
+    obs.enable()
+    for _ in range(runs):
+        index.execute(q)
+    obs.disable()
+    return obs.last_trace()
+
+
+def test_dense_route_span_tree(idx):
+    from repro_torch.kernels import threshold_ssum
+
+    threshold_ssum._CIRCUIT_RUNNERS.clear()
+    cold = _traced(idx, TQ.Threshold(5), runs=1)
+    warm = _traced(idx, TQ.Threshold(5))
+    assert idx.last_info["engine"] == "dense"
+    assert _names(warm) == ("execute", [("plan", []), ("dispatch", [("program", []),
+                                                                    ("launch", [])])])
+    assert cold.find("program").attrs == {"cache": "miss"}
+    assert warm.find("program").attrs == {"cache": "hit"}
+    assert warm.find("launch").attrs == {"kernel": "circuit_eval"}
+
+
+def test_tiled_scan_route_span_tree(staged):
+    root = _traced(staged, TQ.Threshold(2))
+    info = staged.last_info
+    assert info["backend"] == "tiled_fused" and info["engine"] == "scan"
+    assert info["event_tiles"] > 0 and info["case3_tiles"] > 0
+    assert _names(root) == ("execute", [("plan", []), ("dispatch", [("events", []), ("block", []),
+                                                                    ("decode", [])])])
+    assert root.find("events").attrs == {} and root.find("block").attrs == {}
+
+
+def test_every_span_of_a_request_carries_the_root_rid(idx, staged):
+    obs.enable()
+    roots = []
+    for index, q in ((idx, TQ.Threshold(4)), (staged, TQ.Threshold(2)), (idx, TQ.Interval(2, 8))):
+        index.execute(q)
+        roots.append(obs.last_trace())
+    idx.execute_many([TQ.Threshold(3), TQ.Interval(2, 5)])
+    roots.append(obs.last_trace())
+    obs.disable()
+    rids = [r.rid for r in roots]
+    assert len(set(rids)) == len(rids) and all(r > 0 for r in rids)
+    for root in roots:
+        assert root.parent is None
+        for sp in root.iter():
+            assert sp.rid == root.rid
+            assert "rid" not in sp.attrs and "parent" not in sp.attrs
+            end = sp.t0 + sp.wall_s
+            for c in sp.children:  # t0 is the start: children lie inside, in order
+                assert c.parent is sp
+                assert sp.t0 <= c.t0 and c.t0 + c.wall_s <= end
+            starts = [c.t0 for c in sp.children]
+            assert starts == sorted(starts)
+    assert {sp.name for r in roots for sp in r.iter()} >= PORT_ONLY_SPANS
+
+
+def _profiled(calls):
+    """The span trees of ``calls`` (each one request) and the CPU profiler's
+    events over them."""
+    import torch
+
+    roots = []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for call in calls:
+            call()
+            roots.append(obs.last_trace())
+    return roots, prof.events()
+
+
+def _range_forest(events) -> list:
+    """The ``repro.*`` ranges as (name, children) trees, each under the
+    nearest enclosing ``repro.*`` range, in start order."""
+    def owner(e):
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("repro."):
+            p = p.cpu_parent
+        return p
+
+    ranges = sorted((e for e in events if e.name.startswith("repro.")),
+                    key=lambda e: e.time_range.start)
+    kids: dict = {}
+    for e in ranges:
+        p = owner(e)
+        kids.setdefault(None if p is None else id(p), []).append(e)
+
+    def tree(e):
+        return (e.name, [tree(c) for c in kids.get(id(e), [])])
+
+    return [tree(e) for e in kids.get(None, [])]
+
+
+def test_spans_are_profiler_ranges_nested_as_the_spans(idx, staged):
+    def ranged(sp):
+        return ("repro." + sp.name, [ranged(c) for c in sp.children])
+
+    obs.enable()
+    roots, events = _profiled([lambda: idx.execute(TQ.Threshold(4)),
+                               lambda: staged.execute(TQ.Threshold(2)),
+                               lambda: idx.execute_many([TQ.Threshold(3), TQ.Interval(2, 5)])])
+    obs.disable()
+    assert _range_forest(events) == [ranged(r) for r in roots]
+    names = {e.name for e in events}
+    assert {"repro." + n for n in PORT_ONLY_SPANS} <= names
+
+
+def test_tracing_off_makes_no_span_and_opens_no_range(idx, staged, monkeypatch):
+    made = []
+
+    class Counted(trace.Span):
+        __slots__ = ()
+
+        def __init__(self, *args, **kw):
+            made.append(args[0])
+            super().__init__(*args, **kw)
+
+    monkeypatch.setattr(trace, "Span", Counted)
+    calls = [lambda: idx.execute(TQ.Threshold(4)), lambda: staged.execute(TQ.Threshold(2)),
+             lambda: idx.execute_many([TQ.Threshold(3), TQ.Interval(2, 5)])]
+    roots, events = _profiled(calls)
+    assert made == [] and roots == [None] * 3
+    assert not [e.name for e in events if e.name.startswith("repro.")]
+    obs.enable()  # the same calls traced: the counting and the search do see spans
+    _, events = _profiled(calls)
+    obs.disable()
+    assert "launch" in made and "events" in made
+    assert "repro.launch" in {e.name for e in events}

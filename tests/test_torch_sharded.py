@@ -20,7 +20,7 @@ import torch
 
 import repro.obs as robs
 import repro_torch.obs as obs
-from _torch_port import TILE_BITS, container_mix_bits, t_words, u32
+from _torch_port import TILE_BITS, container_mix_bits, reference_view, t_words, u32
 from repro import query as RQ
 from repro.core.threshold import ALGORITHMS as R_ALGORITHMS
 from repro.dist.query import shard_boundaries as r_shard_boundaries
@@ -598,8 +598,14 @@ def test_span_words_match_exec_info_every_backend_sharded(obs_pair, _obs_clean, 
     assert sum(s.attrs["measured_words"] for s in shard_spans) == merged["words_touched"]
 
 
-@pytest.mark.parametrize("backend", [None, "tiled_fused", "circuit", "looped"])
+#: the port-only spans (``_torch_port.PORT_ONLY_SPANS``) each backend's tree holds
+SHARDED_PORT_SPANS = {None: {"program", "launch"}, "tiled_fused": {"block"},
+                      "circuit": {"program", "launch"}, "looped": set()}
+
+
+@pytest.mark.parametrize("backend", list(SHARDED_PORT_SPANS))
 def test_sharded_span_trees_and_drift_equal_reference(obs_pair, _obs_clean, backend):
+    """Equal trees once the port-only spans are folded out."""
     bits, ref, tor = obs_pair
     rs, ts = ref.shard(n_shards=4), tor.shard(n_shards=4)
     for cold in (True, False):
@@ -613,7 +619,10 @@ def test_sharded_span_trees_and_drift_equal_reference(obs_pair, _obs_clean, back
         robs.disable()
         obs.disable()
         assert np.array_equal(u32(got.gather()), np.asarray(want.gather()))
-        assert _untimed(obs.last_trace()) == _untimed(robs.last_trace()), (backend, cold)
+        folded = set()
+        got_tree = reference_view(obs.last_trace(), folded)
+        assert got_tree == _untimed(robs.last_trace()), (backend, cold)
+        assert folded == SHARDED_PORT_SPANS[backend], (backend, cold)
         assert obs.drift_samples() == robs.drift_samples()
 
 
