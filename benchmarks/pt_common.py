@@ -70,14 +70,15 @@ class _OpCount(TorchDispatchMode):
 def ops_per_call(fn) -> int:
     """Device ops one call of ``fn`` dispatches: its aten ops (views and
     bare allocations excepted; each launches about one kernel on the card),
-    plus the launches of the port's own kernels (K1, K2), which bypass
+    plus the launches of the port's own kernels (K1, K2, K3), which bypass
     aten.  Counted on the host, so the count is the same on every device
     and every run."""
     from repro_torch.kernels import threshold_ssum as K
     from repro_torch.kernels import tiled_scan as TK
 
     def own():
-        return K.launch_counts["circuit_eval"] + TK.launch_counts["tiled_block"]
+        return (K.launch_counts["circuit_eval"] + TK.launch_counts["tiled_block"]
+                + TK.launch_counts["tiled_events"])
 
     before = own()
     with _OpCount() as mode:

@@ -43,11 +43,17 @@ What it does, one JSON object per line:
                        is compared with the dense route, the counter oracle
                        and the ``merge`` engine on a tile subset; launch counts
                        are read around it.
-7. ``tiled_timing`` -- per tiled query: K2's time and bound, the event stage's
-                       time, the plain version's, time to result, and the dense
-                       route's time to result on the same index; K2's shared
-                       memory a block and the blocks that fit on one SM
-                       (from its registers and the card's limits).
+7. ``tiled_timing`` -- per tiled query: K2's time and bound, the event
+                       kernel's (K3) words against its plain version, K3's
+                       time, bound and the plain version's, time to result,
+                       and the dense route's time to result on the same
+                       index; K2's shared memory a block and the blocks that
+                       fit on one SM (from its registers and the card's
+                       limits).  ``cell_events``: the same for K3 on the
+                       ``clustered64.embedded-recurring`` benchmark cell's
+                       own data (64 x 2**27 rows, ``bench/``'s generator)
+                       under its N = 8 ``Interval(2, 4)`` template, its
+                       result against the dense route.
 8. ``calibration``  -- on the random index: ``measure_calibration()`` at the
                        reference's shape and at 64 x 2**18 words (smaller if
                        the host lacks the memory to generate it), the
@@ -242,7 +248,7 @@ What it does, one JSON object per line:
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` summary
 line (each kernel's ``launches`` from its main path's own window: K1's
-from ``main_path``, K2's from ``tiled_path``; ``launches_by_phase`` the
+from ``main_path``, K2's and K3's from ``tiled_path``; ``launches_by_phase`` the
 launches of every phase's windows), and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 then exits non-zero and prints no ``ok`` line.  It never runs on the CPU.
@@ -282,9 +288,11 @@ K1_SOURCE = "src/repro_torch/kernels/csrc/circuit_eval.cu"
 K1_REPLACES = "src/repro/kernels/threshold_ssum.py:88"
 K2_SOURCE = "src/repro_torch/kernels/csrc/tiled_block.cu"
 K2_REPLACES = "src/repro/kernels/tiled_scan.py:236"
+K3_SOURCE = "src/repro_torch/kernels/csrc/tiled_events.cu"
+K3_REPLACES = "src/repro/kernels/tiled_scan.py:295 (jitted XLA; no Pallas kernel)"
 
 
-#: per phase, the K1 and K2 launches of the windows it drove (see ``read_counts``)
+#: per phase, the K1, K2 and K3 launches of the windows it drove (see ``read_counts``)
 PHASE_LAUNCHES: dict = {}
 
 
@@ -295,7 +303,8 @@ def emit(tag: str, **fields) -> None:
 def tally(phase: str, counts: dict) -> None:
     """Add one window's launches to ``phase``'s: a window is the counts set
     to 0 just before a path is driven and read just after."""
-    into = PHASE_LAUNCHES.setdefault(phase, {"circuit_eval": 0, "tiled_block": 0})
+    into = PHASE_LAUNCHES.setdefault(phase, {"circuit_eval": 0, "tiled_block": 0,
+                                             "tiled_events": 0})
     for key in into:
         into[key] += counts.get(key, 0)
 
@@ -398,9 +407,9 @@ def phase_env() -> str:
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-2:]
     t0 = time.perf_counter()
-    reports = [ptxas_start(os.path.join(ROOT, src)) for src in (K1_SOURCE, K2_SOURCE)]
-    _build.build_libraries(["circuit_eval", "tiled_block"])
-    for name in ("circuit_eval", "tiled_block"):
+    reports = [ptxas_start(os.path.join(ROOT, src)) for src in (K1_SOURCE, K2_SOURCE, K3_SOURCE)]
+    _build.build_libraries(["circuit_eval", "tiled_block", "tiled_events"])
+    for name in ("circuit_eval", "tiled_block", "tiled_events"):
         _build.load_library(name)
     build_s = time.perf_counter() - t0
     for proc in reports:
@@ -1178,7 +1187,7 @@ def phase_tiled_path(dev, rows_log2: int, n: int, seed: int):
     store = idx.store
     census = store.container_census()
     t_build = time.perf_counter() - t0
-    report, results, block_stages = [], {}, 0
+    report, results, block_stages, event_stages = [], {}, 0, 0
     for name, q in queries.items():
         plan = idx.explain(q)
         t0 = time.perf_counter()
@@ -1191,6 +1200,7 @@ def phase_tiled_path(dev, rows_log2: int, n: int, seed: int):
         torch.cuda.synchronize()
         t_cached = time.perf_counter() - t0
         block_stages += 2 * (info["densified_tiles"] > 0)
+        event_stages += 2 * (info["event_tiles"] > 0)
         check(got.shape == (idx.n_words,) and got.dtype == torch.int32
               and got.device == idx.device, f"{name}: result shape/dtype/device")
         check(torch.equal(got, again), f"{name}: the cached plan gives another result")
@@ -1211,6 +1221,7 @@ def phase_tiled_path(dev, rows_log2: int, n: int, seed: int):
     t_many = time.perf_counter() - t0
     many_info = dict(idx.last_info)
     block_stages += many_info["densified_tiles"] > 0
+    event_stages += many_info["event_tiles"] > 0
 
     # counts read just after the tiled path was driven
     counts = {**K.launch_counts, **TK.launch_counts}
@@ -1231,6 +1242,8 @@ def phase_tiled_path(dev, rows_log2: int, n: int, seed: int):
         check(sum(i["words_by_kind"][kind] for i in infos) > 0, f"words_by_kind[{kind}] > 0")
     check(counts["tiled_block"] == block_stages and block_stages > 0,
           f"tiled_block launched {counts['tiled_block']} times, {block_stages} block stages")
+    check(counts["tiled_events"] == event_stages and event_stages > 0,
+          f"tiled_events launched {counts['tiled_events']} times, {event_stages} event stages")
     check(counts["circuit_eval"] == 0, "the tiled path launched the circuit kernel")
 
     # verification: the dense route, the counter oracle, the merge engine
@@ -1332,6 +1345,51 @@ def k2_occupancy(st) -> dict:
             "blocks_per_sm": blocks_per_sm(regs, threads, shared)}
 
 
+def event_stage_work(st) -> dict:
+    """Bytes the event kernel must move for this plan: each toggle's
+    position and wire, the rows' ranges, groups and destinations, the LUT,
+    and the output tiles it writes (each counted once)."""
+    toggle_b = st.pos.numel() * (st.pos.element_size() + st.wire.element_size())
+    tables_b = sum(t.numel() * t.element_size() for t in (st.row_ptr, st.gid_row, st.dst, st.lut))
+    written_b = int((st.dst >= 0).sum().item()) * st.tw * 4
+    return {"event_toggles": int(st.pos.numel()), "event_rows": st.n_rows,
+            "event_bytes": toggle_b + tables_b + written_b, "event_toggle_bytes": toggle_b,
+            "event_table_bytes": tables_b, "event_written_bytes": written_b}
+
+
+def time_event_stage(plan, reps: int) -> dict:
+    """The event kernel (K3) and its plain version on one cached scan plan:
+    the kernel's words against the plain version's (checked equal), device
+    ms of each (CUDA events), and the stage's byte bound."""
+    from repro_torch.kernels import tiled_scan as TK
+
+    k, n_sel, tw = plan["k"], plan["n_sel"], plan["tw"]
+    ev = plan["event"]
+
+    def fresh():
+        return plan["base"][:, :, None].expand(k, n_sel, tw).contiguous()
+
+    got, want = fresh(), fresh()
+    TK.event_runner(got, ev)
+    TK.event_plain(want, ev)
+    bad = mismatches(got, want)
+    check(bad == 0, f"the event kernel differs from its plain version in {bad} words")
+    del got, want
+    buf = fresh()
+    times = cuda_ms(lambda: TK.event_runner(buf, ev), reps=reps)
+    plain = cuda_ms(lambda: TK.event_plain(buf, ev), reps=3, warmup=1)
+    work = event_stage_work(ev)
+    ms = statistics.median(times)
+    bound_ms = work["event_bytes"] / PEAK_BYTES_PER_S * 1e3
+    return {"event_ms_median": ms, "event_ms_min": min(times), "event_ms_max": max(times),
+            "event_plain_ms_median": statistics.median(plain), **work,
+            "event_bound_ms": bound_ms, "event_bound_by": "bytes",
+            "event_share_of_bound": bound_ms / ms,
+            "event_launch_shape": TK.event_launch_shape(ev.pos.numel(), ev.n_rows, tw,
+                                                        ev.k_max, ev.mm),
+            "event_outputs": ev.k_max, "event_wires": ev.n_wires, "event_mismatched_words": bad}
+
+
 def phase_tiled_timing(idx, queries, many, reps: int) -> dict:
     from repro_torch.kernels import threshold_ssum as K
     from repro_torch.kernels import tiled_scan as TK
@@ -1379,10 +1437,7 @@ def phase_tiled_timing(idx, queries, many, reps: int) -> dict:
                         "k2_plain_ms_median": statistics.median(plain),
                         "decode_words": info["decode_words"], **k2_occupancy(st)})
         if plan["event"] is not None:
-            ev = plan["event"]
-            rec.update({"event_ms_median": statistics.median(
-                cuda_ms(lambda: TK.event_runner(buf, ev), reps=reps)),
-                "event_toggles": int(ev.keys.numel())})
+            rec.update(time_event_stage(plan, reps))
         if len(qs) == 1:
             q = qs[0]
             rec["tiled_to_result_ms"] = to_result(lambda: idx.execute(q))
@@ -1400,6 +1455,64 @@ def phase_tiled_timing(idx, queries, many, reps: int) -> dict:
     one(f"execute_many_k{len(many)}", many)
     emit("tiled_timing", queries=out)
     return headline
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the event stage at the clustered benchmark cell's shape
+# ---------------------------------------------------------------------------
+
+CELL_CONFIG = "bench/configs/paper-clustered-moderate-2e27.json"
+CELL_TRAFFIC = "bench/traffic/recurring16.json"
+
+
+def phase_cell_events(dev, seed: int, reps: int) -> dict:
+    """The ``clustered64.embedded-recurring`` cell's N = 8 ``Interval(2, 4)``
+    template on the cell's own data (``bench/``'s ClusterData generator,
+    64 x 2**27 rows, 64-word tiles; its template draw from ``seed``): K3
+    against its plain version and the result against the dense route (K1),
+    K3's ms beside its bound and the plain version's, and ms to result."""
+    from bench import program, templates
+    from bench.datagen import clustered
+    from repro_torch.kernels import threshold_ssum as K
+    from repro_torch.query.index import circuit_for
+    from repro_torch.storage import run_tiled_circuit
+
+    with open(os.path.join(ROOT, CELL_CONFIG)) as f:
+        cfg = json.load(f)
+    with open(os.path.join(ROOT, CELL_TRAFFIC)) as f:
+        traffic = json.load(f)
+    t0 = time.perf_counter()
+    idx = program.build_index(clustered.generate(cfg, seed, dev), cfg, dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    spec = next(s for s in templates.recurring(traffic, idx.n, seed)
+                if s["kind"] == "interval" and len(s["members"]) == 8)
+    q = program.to_query(spec, idx.names)
+    zero_counts()
+    t0 = time.perf_counter()
+    got = idx.execute(q)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    info = dict(idx.last_info)
+    counts = read_counts("cell_events")
+    check(info["backend"] == "tiled_fused" and info["event_tiles"] > 0,
+          f"the cell's N = 8 interval plans {info['backend']}, {info['event_tiles']} event tiles")
+    check(counts["tiled_events"] == 1, f"one event kernel launch, {counts}")
+    bad_dense = mismatches(got, idx.execute(q, backend="fused"))
+    check(bad_dense == 0, f"the cell's N = 8 interval: {bad_dense} words differ from the dense route")
+    circ = circuit_for((q,), idx.n, idx.names)
+    run_tiled_circuit(idx.store, circ)  # the cached plan
+    plan, _info = idx.store._scan_plan_cache[(K.circuit_structural_key(circ), None)]
+    rec = {"template": spec, "seed": seed, "r": idx.r, "tile_words": idx.store.tile_words,
+           "event_tiles": info["event_tiles"], "densified_tiles": info["densified_tiles"],
+           "seconds_make_and_build": t_build, "host_s_first_call": t_first,
+           "dense_mismatched_words": bad_dense, **time_event_stage(plan, reps),
+           "tiled_to_result_ms": to_result_ms(lambda: idx.execute(q)),
+           "launch_counts": counts}
+    emit("cell_events", **rec)
+    del idx, got, plan
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1671,6 +1784,7 @@ def phase_obs(idx, reps: int = 20) -> None:
     counts = read_counts("obs")
     snap = obs.REGISTRY.snapshot()
     block_launches = snap["repro_kernel_launches_total"]["samples"].get("block", 0)
+    event_launches = snap["repro_kernel_launches_total"]["samples"].get("event", 0)
     decode_words = snap["repro_kernel_decode_words_total"]["samples"].get("", 0)
     prom = obs.export_prometheus()
     problems = lint_prometheus(prom)
@@ -1697,6 +1811,8 @@ def phase_obs(idx, reps: int = 20) -> None:
     check(tiled_tree.find("dispatch").attrs["backend"] == "tiled_fused", "planned tiled_fused")
     check(block_launches == counts["tiled_block"] and block_launches > 0,
           f"block stage counter {block_launches}, K2 launches {counts['tiled_block']}")
+    check(event_launches == counts["tiled_events"],
+          f"event stage counter {event_launches}, K3 launches {counts['tiled_events']}")
     check(counts["circuit_eval"] == 1, f"one K1 launch (the fused query), {counts}")
     check(decode_words == counted,
           f"decode-words counter {decode_words}, the plans' reference count {counted}")
@@ -1719,6 +1835,7 @@ def phase_obs(idx, reps: int = 20) -> None:
     emit("obs", span_trees={"tiled": tiled_tree.format(), "fused": fused_tree.format(),
                             "execute_many": many_tree.format()},
          block_launches_counter=block_launches, k2_launches=counts["tiled_block"],
+         event_launches_counter=event_launches, k3_launches=counts["tiled_events"],
          decode_words_counter=decode_words, decode_words_reference_count=counted,
          decode_words_exec_info=info_words, drift_samples=drift, executions=executions,
          prometheus_lines=len(prom.splitlines()),
@@ -4596,6 +4713,7 @@ def main() -> int:
     tidx, tqueries, tmany, tcounts = timed("tiled_path", phase_tiled_path, dev,
                                            args.tiled_rows_log2, args.columns, args.seed)
     thead = timed("tiled_timing", phase_tiled_timing, tidx, tqueries, tmany, args.reps)
+    k3 = timed("cell_events", phase_cell_events, dev, args.seed, args.reps)
     timed("backends_tiled", phase_backends_tiled, tidx)
     timed("obs", phase_obs, tidx)
     timed("sharded", phase_sharded, tidx, tqueries, tmany, smi, args.seed)
@@ -4653,6 +4771,22 @@ def main() -> int:
         "library_ms": None,
         "shape": f"interval_2_10 on the clustered index: {thead['blocks']} blocks of "
                  f"{thead['B']} tiles, {thead['groups']} residual groups",
+        "tolerance": "exact (bitmaps)",
+    }, {
+        "name": "tiled_events",
+        "route": "cuda",
+        "source": K3_SOURCE,
+        "replaces": K3_REPLACES,
+        "launches": tcounts["tiled_events"],
+        "launches_by_phase": {name: c["tiled_events"] for name, c in by_phase.items()},
+        "max_abs_err": k3["event_mismatched_words"],
+        "ms": k3["event_ms_median"],
+        "plain_ms": k3["event_plain_ms_median"],
+        "bound_ms": k3["event_bound_ms"],
+        "bound_by": k3["event_bound_by"],
+        "library_ms": None,
+        "shape": f"the clustered cell's N = 8 interval [2, 4]: {k3['event_toggles']} toggles "
+                 f"over {k3['event_rows']} event tiles of {k3['tile_words']} words",
         "tolerance": "exact (bitmaps)",
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

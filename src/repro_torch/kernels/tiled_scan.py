@@ -5,17 +5,23 @@ most two dispatches, both writing into one ``int32[k, n_sel, tile_words]``
 buffer on the store's device that was seeded with each tile's
 constant-fold value:
 
-  * **Event stage** (:func:`event_runner`, torch ops) -- tiles whose
-    residual inputs are ALL sparse/run containers: their boundary events
-    (sorted once on the host, cached with the plan) are XOR-accumulated
-    into input combinations, mapped through stacked per-group truth-table
-    LUTs, and the value changes rasterized back to words by prefix-XOR --
-    the device counterpart of
+  * **Event stage** (:func:`event_runner`) -- tiles whose residual inputs
+    are ALL sparse/run containers: their boundary events (sorted once on the
+    host, cached with the plan) are XOR-accumulated into input combinations,
+    mapped through stacked per-group truth-table LUTs, and the value changes
+    rasterized back to words by prefix-XOR -- the device counterpart of
     :func:`repro_torch.storage.containers.evaluate_event_tiles`.  It
-    replaces the reference's jitted XLA ``event_runner`` (no Pallas there):
-    the XOR scan of one-hot wire masks is a per-wire ``cumsum & 1`` (at most
-    ``_EV_MAX_INPUTS`` = 12 wires), the two forward fills are
-    ``torch.cummax``, and the collision-free scatter is ``index_add_``.
+    replaces the reference's jitted XLA ``event_runner`` (no Pallas there).
+    On a CUDA tensor ONE launch of the hand-written kernel
+    ``csrc/tiled_events.cu`` does all of it, one thread block per event row:
+    a block-wide XOR scan of the row's one-hot wire masks in shared memory,
+    the LUT lookups, the fired bits set by ``atomicXor`` in shared toggle
+    words, a warp prefix-XOR per output, one store per output tile.
+    :func:`event_plain` is its plain version, about thirty torch ops on the
+    same plan arrays (the XOR scan as a per-wire ``cumsum & 1`` over at most
+    ``_EV_MAX_INPUTS`` = 12 wires, the two forward fills as ``torch.cummax``,
+    the collision-free scatter as ``index_add_``): what runs for tensors on
+    the CPU, and what the kernel is compared with on the card.
 
   * **Block stage** (:func:`block_runner`) -- every other case-3 tile, in
     blocks of ``B`` tiles of one residual group.  On a CUDA tensor ONE
@@ -44,10 +50,11 @@ traces; results and every ``ExecInfo`` field are unchanged by it).
 Words are ``int32`` with the reference's ``uint32`` bits: every logical
 right shift is ``(x >> s) & mask``.
 
-``launch_counts["tiled_block"]`` counts the block kernel's launches (and
-nothing else).  With :mod:`repro_torch.obs` enabled, each stage also adds
-to the reference's counters ``repro_kernel_launches_total{stage=block|
-event}``, ``repro_kernel_decode_words_total`` and
+``launch_counts["tiled_block"]`` and ``launch_counts["tiled_events"]``
+count the two kernels' launches (and nothing else).  With
+:mod:`repro_torch.obs` enabled, each stage also adds to the reference's
+counters ``repro_kernel_launches_total{stage=block|event}``,
+``repro_kernel_decode_words_total`` and
 ``repro_kernel_event_toggles_total``, with the reference's values for the
 same plan (:func:`reference_decode_words`; the reference counts its toggle
 array padded to a power of two).
@@ -78,6 +85,9 @@ __all__ = [
     "block_plain",
     "block_shared_bytes",
     "event_runner",
+    "event_plain",
+    "event_launch_shape",
+    "event_shared_bytes",
     "clear_scan_runners",
     "next_pow2",
     "pick_tile_block",
@@ -87,12 +97,13 @@ __all__ = [
     "BlockStage",
     "EventStage",
     "make_block_stage",
+    "make_event_stage",
     "reference_decode_words",
 ]
 
-#: launches of the block kernel since the count was last set to 0
-#: (incremented only where the kernel is launched)
-launch_counts = {"tiled_block": 0}
+#: launches of the block and event kernels since the counts were last set
+#: to 0 (incremented only where a kernel is launched)
+launch_counts = {"tiled_block": 0, "tiled_events": 0}
 
 # dispatch accounting on the process registry (no-op until obs.enable()):
 # stage dispatches per kind, words the decode stages, and event toggles
@@ -133,6 +144,12 @@ BLOCK_WORDS = 256
 #: rows of a group's program a block stages in shared memory; the kernel
 #: reads the rows of a longer program past these from device memory
 STAGED_ROWS = 256
+#: dynamic shared memory a block of the event kernel takes at most (bytes):
+#: the default limit, so the kernel needs no opt-in
+EVENT_SHARED_BYTES = 48 * 1024
+#: LUT bytes of a block's outputs the event kernel stages in shared memory at
+#: most; a larger LUT is read through the cache
+EVENT_LUT_STAGE_BYTES = 4096
 
 # residual program tables, keyed by the circuits' structures and k_max
 _PROGRAMS: OrderedDict = OrderedDict()
@@ -265,7 +282,7 @@ def _concat_ranges(starts: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# event stage (torch ops)
+# event stage: the plan arrays and the kernel's plain version
 # ---------------------------------------------------------------------------
 
 
@@ -283,7 +300,16 @@ class EventStage:
     * ``out_src`` / ``out_dst`` int64: row ``j * n_rows + row`` of the
       stage's ``[k_max * n_rows, tw]`` words, for every (output, event row)
       the row's group has, and the row of the flat ``[k * n_sel, tw]``
-      buffer it goes to.
+      buffer it goes to;
+
+    and what the kernel reads, built once with them (:func:`make_event_stage`):
+
+    * ``row_ptr`` int32[n_rows + 1]: event row ``r``'s toggles are
+      ``[row_ptr[r], row_ptr[r + 1])`` of the key order;
+    * ``pos`` uint16[e] / ``wire`` uint8[e]: each toggle's in-tile position
+      (``keys % (tw * 32 + 2)``) and wire, in key order;
+    * ``dst`` int32[n_rows, k_max]: ``out_dst`` by (event row, output), -1
+      where the row's group has no such output.
     """
 
     keys: torch.Tensor
@@ -292,6 +318,10 @@ class EventStage:
     lut: torch.Tensor
     out_src: torch.Tensor
     out_dst: torch.Tensor
+    row_ptr: torch.Tensor
+    pos: torch.Tensor
+    wire: torch.Tensor
+    dst: torch.Tensor
     k_max: int
     mm: int
     n_wires: int
@@ -299,13 +329,47 @@ class EventStage:
     #: the reference's toggle count for this stage: its padded toggle array
     counted_toggles: int = 0
 
+    @property
+    def n_rows(self) -> int:
+        return int(self.gid_row.numel())
 
-def event_runner(buf: torch.Tensor, st: EventStage) -> None:
-    """Run the event stage into ``buf`` (int32[k, n_sel, tw], in place):
-    every output of every event row at once, about thirty torch ops."""
-    if _OBS.enabled:
-        _LAUNCH_EVENT.inc(1)
-        _EVENT_TOGGLES_B.inc(st.counted_toggles)
+
+def make_event_stage(keys: np.ndarray, wire: np.ndarray, gid_row: np.ndarray,
+                     lut: np.ndarray, out_src: np.ndarray, out_dst: np.ndarray, *,
+                     k_max: int, mm: int, n_wires: int, tw: int, counted_toggles: int,
+                     device) -> EventStage:
+    """An :class:`EventStage` from host plan arrays: ``keys`` sorted
+    ascending with each toggle's ``wire`` in the same order.  The kernel's
+    row ranges, narrowed toggles and per-(row, output) destinations are
+    built here, once, beside the torch-op version's arrays."""
+    n_rows = int(gid_row.size)
+    stride = tw * 32 + 2
+    if stride > 1 << 16:
+        raise ValueError(f"tiles of {tw} words: in-tile positions exceed uint16")
+    if keys.size >= 2**31 - 2048 or out_dst.size and int(out_dst.max()) >= 2**31:
+        raise ValueError("tiled event plan exceeds int32 indexing")
+    row_ptr = np.searchsorted(keys, np.arange(n_rows + 1, dtype=np.int64) * stride)
+    dst = np.full((n_rows, k_max), -1, np.int32)
+    dst[out_src % n_rows, out_src // n_rows] = out_dst
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+    return EventStage(
+        keys=up(keys, np.int64), mask=up(np.left_shift(1, wire), np.int32),
+        gid_row=up(gid_row, np.int64), lut=up(lut.reshape(-1), np.uint8),
+        out_src=up(out_src, np.int64), out_dst=up(out_dst, np.int64),
+        row_ptr=up(row_ptr, np.int32), pos=up(keys % stride, np.uint16),
+        wire=up(wire, np.uint8), dst=up(dst, np.int32),
+        k_max=int(k_max), mm=int(mm), n_wires=int(n_wires), tw=int(tw),
+        counted_toggles=int(counted_toggles),
+    )
+
+
+def event_plain(buf: torch.Tensor, st: EventStage) -> None:
+    """The event kernel's plain version: every output of every event row at
+    once, about thirty torch ops, into ``buf`` (int32[k, n_sel, tw], in
+    place) on whatever device it lies."""
     tw, mm, k_max = st.tw, st.mm, st.k_max
     stride = tw * 32 + 2
     keys, mask, lut, gid_row = st.keys, st.mask, st.lut, st.gid_row
@@ -571,3 +635,108 @@ def block_runner(buf: torch.Tensor, st: BlockStage) -> None:
         _tiled_block_cuda(buf, st)
     else:
         block_plain(buf, st)
+
+
+# ---------------------------------------------------------------------------
+# event stage: the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+
+def event_shared_bytes(tw: int, kb: int, mm: int) -> int:
+    """Dynamic shared memory of one block of the event kernel (bytes).
+
+    The kernel's layout (``csrc/tiled_events.cu``, which counts the same and
+    is held to this count when it loads): the toggle words of the block's
+    ``kb`` outputs (``kb * tw`` words), one word a warp for the block's XOR
+    scan (32 words), and the LUT rows of its outputs (``kb * mm`` bytes)
+    where they fit :data:`EVENT_LUT_STAGE_BYTES`."""
+    lut = kb * mm if kb * mm <= EVENT_LUT_STAGE_BYTES else 0
+    return kb * tw * 4 + 32 * 4 + lut
+
+
+def event_launch_shape(n_toggles: int, n_rows: int, tw: int, k_max: int, mm: int) -> tuple:
+    """(threads per block, outputs per block) of the event kernel for a
+    stage of this shape.  A block reads one toggle a thread a chunk, so its
+    threads follow the mean toggles a row (a power of two from 64 to 512);
+    it holds the toggle words of as many of the ``k_max`` outputs as fit
+    :data:`EVENT_SHARED_BYTES` (all of them but for wide tiles with many
+    outputs, whose rows then go to several blocks)."""
+    mean = -(-int(n_toggles) // max(1, int(n_rows)))
+    threads = min(512, max(64, next_pow2(mean)))
+    kb = max(1, min(int(k_max), (EVENT_SHARED_BYTES - 32 * 4) // (4 * int(tw))))
+    while kb > 1 and event_shared_bytes(tw, kb, mm) > EVENT_SHARED_BYTES:
+        kb -= 1
+    if event_shared_bytes(tw, kb, mm) > EVENT_SHARED_BYTES:
+        raise ValueError(f"event tiles of {tw} words exceed {EVENT_SHARED_BYTES} bytes a block")
+    return threads, kb
+
+
+_EVENTS_LIB = None
+
+
+def _events_lib():
+    global _EVENTS_LIB
+    if _EVENTS_LIB is not None:
+        return _EVENTS_LIB
+    with _build.LOCK:
+        if _EVENTS_LIB is not None:  # bound by another thread while this one waited
+            return _EVENTS_LIB
+        lib = _build.load_library("tiled_events")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.tiled_events_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.tiled_events_launch.restype = i
+        lib.tiled_events_shared_bytes.argtypes = [i, i, i]
+        lib.tiled_events_shared_bytes.restype = ctypes.c_longlong
+        lib.tiled_events_error_string.argtypes = [i]
+        lib.tiled_events_error_string.restype = ctypes.c_char_p
+        for shape in ((1, 1, 2), (64, 1, 256), (64, 16, 256), (64, 2, 4096), (2047, 5, 16)):
+            if lib.tiled_events_shared_bytes(*shape) != event_shared_bytes(*shape):
+                raise RuntimeError("the kernel's shared-memory layout differs from "
+                                   "tiled_scan.event_shared_bytes")
+        _EVENTS_LIB = lib
+    return _EVENTS_LIB
+
+
+def _tiled_events_cuda(buf: torch.Tensor, st: EventStage) -> None:
+    """Launch the event kernel on ``buf``'s device and current stream."""
+    if not buf.is_cuda or buf.dtype != WORD_DTYPE or not buf.is_contiguous():
+        raise ValueError("the event kernel writes a contiguous int32 CUDA buffer")
+    arrays = ((st.row_ptr, torch.int32), (st.pos, torch.uint16), (st.wire, torch.uint8),
+              (st.gid_row, torch.int64), (st.lut, torch.uint8), (st.dst, torch.int32))
+    for t, dtype in arrays:
+        if t.device != buf.device or not t.is_contiguous() or t.dtype != dtype:
+            raise ValueError("every event plan array must be contiguous on the buffer's "
+                             "device, in the kernel's type")
+    if (st.row_ptr.numel() != st.n_rows + 1 or st.wire.numel() != st.pos.numel()
+            or tuple(st.dst.shape) != (st.n_rows, st.k_max)
+            or st.lut.numel() % (st.k_max * st.mm) or buf.shape[-1] != st.tw):
+        raise ValueError("event plan arrays of inconsistent shapes")
+    lib = _events_lib()
+    dev = buf.device
+    threads, kb = event_launch_shape(st.pos.numel(), st.n_rows, st.tw, st.k_max, st.mm)
+    with torch.cuda.device(dev):
+        code = lib.tiled_events_launch(
+            buf.data_ptr(), st.row_ptr.data_ptr(), st.pos.data_ptr(), st.wire.data_ptr(),
+            st.gid_row.data_ptr(), st.lut.data_ptr(), st.dst.data_ptr(),
+            st.n_rows, st.tw, st.k_max, kb, st.mm, threads,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if code != 0:
+        raise RuntimeError(
+            f"tiled_events launch failed: {lib.tiled_events_error_string(code).decode()} "
+            f"(rows={st.n_rows}, tw={st.tw}, k_max={st.k_max}, outputs_per_block={kb}, "
+            f"mm={st.mm}, threads={threads}, shared={event_shared_bytes(st.tw, kb, st.mm)})"
+        )
+    launch_counts["tiled_events"] += 1
+
+
+def event_runner(buf: torch.Tensor, st: EventStage) -> None:
+    """The event stage where ``buf`` lies: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if _OBS.enabled:
+        _LAUNCH_EVENT.inc(1)
+        _EVENT_TOGGLES_B.inc(st.counted_toggles)
+    if buf.is_cuda:
+        _tiled_events_cuda(buf, st)
+    else:
+        event_plain(buf, st)

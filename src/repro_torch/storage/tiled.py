@@ -16,9 +16,9 @@ batched queries), using :meth:`Circuit.specialize`:
 Case-3 execution then runs on one of two engines:
 
   * ``engine="scan"`` (default) -- at most two device dispatches per query
-    (:mod:`repro_torch.kernels.tiled_scan`): the event stage for tiles
-    whose residual inputs are all compressed, and ONE launch of the
-    hand-written block kernel for everything else, which decodes the
+    (:mod:`repro_torch.kernels.tiled_scan`): ONE launch of the hand-written
+    event kernel for tiles whose residual inputs are all compressed, and ONE
+    launch of the hand-written block kernel for everything else, which decodes the
     containers from the store's device packs into shared memory and runs
     each block's residual program.  The ``[k, n_tiles, tile_words]`` result
     is assembled on the device.
@@ -494,15 +494,14 @@ def _run_scan_pass(store, merged, base_vals, info, sel, restricted,
         wire = np.concatenate(wire_parts)
         keys = row * stride + pos
         order = np.argsort(keys, kind="stable")
-        plan["event"] = tiled_scan.EventStage(
-            keys=torch.from_numpy(keys[order]).to(dev),
-            mask=torch.from_numpy((1 << wire[order]).astype(np.int32)).to(dev),
-            gid_row=torch.from_numpy(np.concatenate(gid_parts)).to(dev),
-            lut=torch.from_numpy(lut.reshape(-1)).to(dev),
-            out_src=torch.from_numpy(np.concatenate(out_src)).to(dev),
-            out_dst=torch.from_numpy(np.concatenate(out_dst).astype(np.int64)).to(dev),
+        # with them, each event row's range of the order and the toggles
+        # narrowed to what the event kernel reads
+        plan["event"] = tiled_scan.make_event_stage(
+            keys[order], wire[order], np.concatenate(gid_parts), lut,
+            np.concatenate(out_src), np.concatenate(out_dst).astype(np.int64),
             k_max=k_max_ev, mm=mm, n_wires=m_max_ev, tw=tw,
             counted_toggles=tiled_scan.next_pow2(keys.size),  # the reference pads to pow2
+            device=dev,
         )
         info["launches"] += 1
 

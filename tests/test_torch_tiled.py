@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from _event_cases import CASES as EVENT_CASES
+from _event_cases import base_buffer, event_case
 from _torch_port import clean_fraction_bits, container_mix_bits, u32
 from repro import query as RQ
 from repro.core import circuits as RC
@@ -283,6 +285,29 @@ def test_scan_engine_differential_seeded(seed, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+def _reference_event(st, base):
+    """The reference's jitted event stage on the port's plan arrays (its
+    padded layout made from them), over the tile constants ``base``
+    uint32[k, n_sel]: uint32[k, n_sel, tw]."""
+    k, n_sel = base.shape
+    tw, n_rows = st.tw, st.n_rows
+    G = st.lut.numel() // (st.k_max * st.mm)
+    stride = tw * 32 + 2
+    e_pad = RK.next_pow2(st.keys.numel())
+    keys = RK.pad_to(st.keys.cpu().numpy().astype(np.int32), e_pad, n_rows * stride)
+    mask = RK.pad_to(st.mask.cpu().numpy().view(np.uint32), e_pad, 0)
+    gid_row = np.append(st.gid_row.cpu().numpy().astype(np.int32), G)
+    lut = np.concatenate([st.lut.cpu().numpy(), np.zeros(st.k_max * st.mm, np.uint8)])
+    out_dst = np.full((st.k_max, n_rows + 1), n_sel, np.int32)
+    src, d = st.out_src.cpu().numpy(), st.out_dst.cpu().numpy()
+    out_dst[src // n_rows, src % n_rows] = (d // n_sel) * (n_sel + 1) + d % n_sel
+    fn = RK.event_runner(st.k_max, st.mm, tw)
+    base1 = np.concatenate([base, np.zeros((k, 1), np.uint32)], axis=1)
+    want = fn(jnp.asarray(base1), jnp.asarray(keys), jnp.asarray(mask), jnp.asarray(gid_row),
+              jnp.asarray(lut), jnp.asarray(out_dst))
+    return np.asarray(want)[:, :n_sel]
+
+
 def test_event_runner_against_the_reference_on_the_same_arrays():
     """The port's event stage (torch ops) and the reference's jitted one run
     on the same host-built plan arrays (the reference's padded layout is
@@ -298,23 +323,96 @@ def test_event_runner_against_the_reference_on_the_same_arrays():
     plan, _tmpl = next(iter(tor._scan_plan_cache.values()))
     st = plan["event"]
     n_sel, tw = plan["n_sel"], plan["tw"]
-    n_rows = st.gid_row.numel()
-    G = st.lut.numel() // (st.k_max * st.mm)
-    stride = tw * 32 + 2
-    e_pad = RK.next_pow2(st.keys.numel())
-    keys = RK.pad_to(st.keys.numpy().astype(np.int32), e_pad, n_rows * stride)
-    mask = RK.pad_to(st.mask.numpy().view(np.uint32), e_pad, 0)
-    gid_row = np.append(st.gid_row.numpy().astype(np.int32), G)
-    lut = np.concatenate([st.lut.numpy(), np.zeros(st.k_max * st.mm, np.uint8)])
-    out_dst = np.full((st.k_max, n_rows + 1), n_sel, np.int32)
-    src, d = st.out_src.numpy(), st.out_dst.numpy()
-    out_dst[src // n_rows, src % n_rows] = (d // n_sel) * (n_sel + 1) + d % n_sel
-    fn = RK.event_runner(st.k_max, st.mm, tw)
-    want = fn(jnp.zeros((k, n_sel + 1), jnp.uint32), jnp.asarray(keys), jnp.asarray(mask),
-              jnp.asarray(gid_row), jnp.asarray(lut), jnp.asarray(out_dst))
+    want = _reference_event(st, np.zeros((k, n_sel), np.uint32))
     buf = torch.zeros((k, n_sel, tw), dtype=torch.int32)
     TK.event_runner(buf, st)
-    assert np.array_equal(u32(buf), np.asarray(want)[:, :n_sel])
+    assert np.array_equal(u32(buf), want)
+
+
+@pytest.mark.parametrize("case", sorted(EVENT_CASES))
+def test_event_plain_against_the_reference_on_the_edges(case):
+    """The kernel's plain version against the reference on the synthetic
+    plans the card holds the kernel to (``tests/_event_cases.py``): empty
+    rows, equal positions that combine or cancel, bits 31 / 32 and the
+    dropped column, a row of far more toggles than a block's threads, 1 to
+    8 and 12 wires, several groups and outputs, tiles of 1,536 words."""
+    st, base = event_case(case, "cpu")
+    buf = base_buffer(base, st.tw, "cpu")
+    TK.event_plain(buf, st)
+    assert np.array_equal(u32(buf), _reference_event(st, base))
+
+
+def _check_event_plan(st):
+    """``row_ptr``, ``pos``, ``wire`` and ``dst`` agree with the sorted keys,
+    the masks and ``out_src`` / ``out_dst``."""
+    keys = st.keys.numpy()
+    stride = st.tw * 32 + 2
+    rp = st.row_ptr.numpy()
+    assert st.row_ptr.dtype == torch.int32 and rp.shape == (st.n_rows + 1,)
+    assert rp[0] == 0 and rp[-1] == keys.size and np.all(np.diff(rp) >= 0)
+    for r in range(st.n_rows):  # a row's range holds exactly its toggles
+        assert np.all(keys[rp[r]:rp[r + 1]] // stride == r)
+    assert np.array_equal(np.repeat(np.arange(st.n_rows), np.diff(rp)), keys // stride)
+    assert st.pos.dtype == torch.uint16 and st.wire.dtype == torch.uint8
+    assert np.array_equal(st.pos.numpy().astype(np.int64), keys % stride)
+    assert np.array_equal(np.left_shift(1, st.wire.numpy().astype(np.int32)), st.mask.numpy())
+    dst = st.dst.numpy()
+    assert st.dst.dtype == torch.int32 and dst.shape == (st.n_rows, st.k_max)
+    src, d = st.out_src.numpy(), st.out_dst.numpy()
+    assert np.array_equal(dst[src % st.n_rows, src // st.n_rows], d)
+    assert int((dst >= 0).sum()) == src.size
+    return np.diff(rp)
+
+
+@pytest.mark.parametrize("fixture,tw,kind", [(f, tw, kind)
+                                             for f, tw in (("sparse", 8), ("sparse", 64),
+                                                           ("containers", 64))
+                                             for kind in ("threshold", "multi")])
+def test_event_plan_row_ranges_and_narrowed_toggles(fixture, tw, kind):
+    """The scan plan's event stage carries each event row's range of the
+    sorted keys, the toggles narrowed to (uint16 position, uint8 wire) and
+    the (row, output) destinations, all agreeing with the keys."""
+    _ref, tor = store_pair(FIXTURES[fixture](), tw)
+    _rc, tc = circuit_pair(kind, 6)
+    t_run(tor, tc, engine="scan")
+    plan, _tmpl = next(iter(tor._scan_plan_cache.values()))
+    assert plan["event"] is not None, f"{fixture} at {tw} words plans no event stage"
+    _check_event_plan(plan["event"])
+
+
+@pytest.mark.parametrize("case", sorted(EVENT_CASES))
+def test_event_plan_of_the_synthetic_cases(case):
+    st, _base = event_case(case, "cpu")
+    counts = _check_event_plan(st)
+    if case == "edges":
+        assert counts[1] == 0  # the row with no toggles has an empty range
+
+
+def test_event_launch_shape_and_shared_memory():
+    # threads follow the mean toggles a row, from 64 to 512
+    assert TK.event_launch_shape(100, 10, 64, 1, 256) == (64, 1)
+    assert TK.event_launch_shape(250 * 1000, 1000, 64, 2, 256) == (256, 2)
+    assert TK.event_launch_shape(10**7, 100, 64, 1, 256) == (512, 1)
+    assert TK.event_launch_shape(0, 0, 8, 3, 4) == (64, 3)
+    # every output of a row in one block but for wide tiles with many outputs
+    assert TK.event_launch_shape(10, 1, 1536, 9, 8)[1] == 7
+    assert TK.event_launch_shape(10, 1, 2047, 64, 4096)[1] == 5
+    for tw, k, mm in ((1, 1, 2), (64, 16, 256), (64, 2, 4096), (1536, 9, 8), (2047, 64, 4096)):
+        kb = TK.event_launch_shape(1, 1, tw, k, mm)[1]
+        assert TK.event_shared_bytes(tw, kb, mm) <= TK.EVENT_SHARED_BYTES
+    # the LUT rows are staged only where they fit
+    assert TK.event_shared_bytes(64, 1, 256) == 64 * 4 + 128 + 256
+    assert TK.event_shared_bytes(64, 2, 4096) == 2 * 64 * 4 + 128
+
+
+def test_event_wrapper_refuses_what_the_kernel_does_not_take():
+    st, base = event_case("edges", "cpu")
+    with pytest.raises(ValueError, match="CUDA buffer"):
+        TK._tiled_events_cuda(base_buffer(base, st.tw, "cpu"), st)  # never reaches the kernel
+    with pytest.raises(ValueError, match="uint16"):
+        TK.make_event_stage(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(1, np.int64),
+                            np.zeros(2, np.uint8), np.zeros(0, np.int64), np.zeros(0, np.int64),
+                            k_max=1, mm=2, n_wires=1, tw=2048, counted_toggles=1, device="cpu")
 
 
 @pytest.mark.parametrize("tw", [1, 8, 64])
