@@ -10,30 +10,23 @@ for p in (str(ROOT / "src"), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-#: rows of a tiny run: 64 tiles of 64 words
+#: rows of a tiny run of 64 columns or fewer: 64 tiles of 64 words
 TINY_ROWS = 1 << 17
+#: the fewest rows of a tiny run: 4 tiles of 64 words
+MIN_TINY_ROWS = 1 << 13
+#: bits a tiny run holds, whatever its column count
+TINY_BITS = TINY_ROWS * 64
 
 #: cells whose loops the harness keeps but BENCHMARK.json does not list yet
 #: (PERF.md, open questions): their entries as a later PR would add them, so
-#: that the CPU tests keep driving the served and live loops
+#: that the CPU tests keep driving the live loop
 PARKED = {
     "workloads": [
-        {"name": "uniform64.served-adhoc", "config": "paper-uniform-dense-2e27",
-         "traffic": "adhoc8", "chips": 1,
-         "why": "8 clients send fresh queries through QueryServer: plan, compile and the server's host path"},
         {"name": "clustered64.live-updates", "config": "paper-clustered-moderate-2e27",
          "traffic": "live20", "chips": 1,
          "why": "recurring16 on a StreamingIndex with a 64-bit update batch every 50 ms"},
     ],
     "per_layer": [
-        {"name": "compile.host_ms", "unit": "ms", "better": "lower", "source": "program_span",
-         "layer": "compile", "moves": "queries_per_s", "workloads": ["uniform64.served-adhoc"]},
-        {"name": "serve.batch_size", "unit": "queries/batch", "better": "higher",
-         "source": "program_counter", "layer": "serve front end", "moves": "queries_per_s",
-         "workloads": ["uniform64.served-adhoc"]},
-        {"name": "serve.batch_ms", "unit": "ms", "better": "lower", "source": "program_span",
-         "layer": "serve front end", "moves": "query_p95_ms",
-         "workloads": ["uniform64.served-adhoc"]},
         {"name": "stream.delta_words", "unit": "words", "better": "lower",
          "source": "program_counter", "layer": "stream", "moves": "queries_per_s",
          "workloads": ["clustered64.live-updates"]},
@@ -62,14 +55,25 @@ def cells() -> list:
     return [w["name"] for w in with_parked().spec["workloads"]]
 
 
+def tiny_rows(columns: int) -> int:
+    """Rows of a tiny run of ``columns`` columns: the largest power of two
+    that holds no more bits than ``TINY_BITS``, between ``MIN_TINY_ROWS``
+    and ``TINY_ROWS``."""
+    fit = 1 << ((TINY_BITS // int(columns)).bit_length() - 1)
+    return min(TINY_ROWS, max(MIN_TINY_ROWS, fit))
+
+
 def tiny(cell: str, layout=None, seed: int = 2**33 + 7, seconds: float = 0.6,
-         trace: bool = False, stand_in=None, rows: int = TINY_ROWS) -> dict:
+         trace: bool = False, stand_in=None, rows: int | None = None) -> dict:
+    """One run of ``cell`` on the CPU at a tiny universe: ``rows``, or by
+    default ``tiny_rows`` of the cell's column count."""
     import torch
 
     from bench import run as harness
 
     layout = layout or with_parked()
     cfg = layout.config(layout.cell(cell)["config"])
+    rows = tiny_rows(cfg["columns"]) if rows is None else rows
     over = {"universe": rows, "card": rows // int(cfg["universe_per_card"])}
     threads = torch.get_num_threads()
     torch.set_num_threads(2)  # the test workers share the machine's cores
