@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.core.bitmaps import n_words_for, pack
 from repro_torch.device import resolve_device, to_numpy_u32, to_words
+from repro_torch.obs import REGISTRY as _OBS
 
 from .containers import (
     CONT_DENSE,
@@ -72,6 +73,23 @@ __all__ = [
 ]
 
 TILE_ZERO, TILE_ONE, TILE_DIRTY, TILE_RUN = 0, 1, 2, 3
+
+# member-statistics accounting on the process registry (no-op until
+# obs.enable()): tiles the signature pass read, and cache misses by how they
+# were answered -- ``summary`` (no member has a clean tile: per-column sums
+# alone) or ``scan`` (the signature pass over the members' clean tiles)
+_STATS_TILES = _OBS.counter(
+    "repro_plan_stats_tiles_scanned_total",
+    "Tiles the member-statistics signature pass read",
+)
+_STATS_PASSES = _OBS.counter(
+    "repro_plan_stats_total",
+    "Member-statistics cache misses by pass (summary or scan)",
+    ("pass",),
+)
+_STATS_TILES_B = _STATS_TILES.bind()
+_STATS_SUMMARY = _STATS_PASSES.bind(**{"pass": "summary"})
+_STATS_SCAN = _STATS_PASSES.bind(**{"pass": "scan"})
 
 
 def _signature_counts(cls: np.ndarray, *, return_inverse: bool = False):
@@ -134,6 +152,18 @@ class MemberStats:
     #: words actually stored for the subset's dirty tiles (compressed;
     #: == dirty_words when every container is dense / containers are off)
     compressed_words: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _ColumnSummaries:
+    """A store's per-column figures that :meth:`TileStore.member_stats`
+    sums: dirty tiles, (dense, sparse, run) container tiles and stored
+    words, each indexed by column, and each column's sorted clean tiles."""
+
+    dirty: np.ndarray  # int64 [N]
+    containers: np.ndarray  # int64 [N, 3]
+    words: np.ndarray  # int64 [N]
+    clean: tuple  # N sorted int64 arrays of ZERO / ONE tile indices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -350,6 +380,7 @@ class TileStore:
         # the np.unique signature pass) per member subset never changes --
         # planners hit this once per (shard, subset), not once per query
         self._member_stats_cache: dict = {}
+        self._summaries: _ColumnSummaries | None = None
 
     # -- legacy densified dirty surface ------------------------------------
     def _assemble_dirty(self) -> None:
@@ -718,6 +749,7 @@ class TileStore:
         store._refined_classes = None
         store._col_stats = None
         store._member_stats_cache = {}
+        store._summaries = None
         if not (kinds > CONT_DENSE).any():
             # all-dense layout: the densified dirty pack IS the dense pack
             # (same per-column tile order), so the dirty surface reads the
@@ -1073,40 +1105,77 @@ class TileStore:
         return BlockStats(classes=self._classes_word.copy(),
                           tile_words=self.tile_words, n_words=self.n_words)
 
+    def _column_summaries(self) -> "_ColumnSummaries":
+        """Per-column figures that member statistics sum (built once)."""
+        if self._summaries is None:
+            cls, kinds = self._classes_word, self.container_kinds
+            self._summaries = _ColumnSummaries(
+                dirty=(cls >= TILE_DIRTY).sum(axis=1),
+                containers=np.stack(
+                    [(kinds == k).sum(axis=1)
+                     for k in (CONT_DENSE, CONT_SPARSE, CONT_RUN)], axis=1
+                ),
+                words=self.storage_words_cell.sum(axis=1, dtype=np.int64),
+                clean=tuple(np.flatnonzero(row <= TILE_ONE) for row in cls),
+            )
+        return self._summaries
+
     def member_stats(self, slots=None) -> MemberStats:
         """Planner-facing aggregate over a member subset (default: all).
-        Cached per subset (the store is immutable)."""
+        Cached per subset (the store is immutable).
+
+        Sums of per-column summaries, except the tile-class signatures: a
+        tile where no member is clean has the all-DIRTY signature, which
+        sorts last, so the signature pass reads only the union ``U`` of the
+        members' clean tiles -- none at all on a dense index."""
         key = None if slots is None else tuple(slots)
         cached = self._member_stats_cache.get(key)
         if cached is not None:
             return cached
         idx = np.arange(self.n) if slots is None else np.asarray(list(key))
         if idx.size == 0:
-            return MemberStats(0, self.n_words, self.tile_words, 1.0, 0.0, 0, 0)
-        cls = self._classes_word[idx]
-        dirty_tiles = int((cls >= TILE_DIRTY).sum())
+            stats = MemberStats(0, self.n_words, self.tile_words, 1.0, 0.0, 0, 0)
+            self._member_stats_cache[key] = stats
+            return stats
+        summ = self._column_summaries()
+        dirty_tiles = int(summ.dirty[idx].sum())
         dens = [self._cols[i].cardinality / max(self.r, 1) for i in idx]
-        sigs, counts = _signature_counts(cls)
-        signatures = tuple(
-            (int(cnt), int((sig == TILE_ONE).sum()), int((sig >= TILE_DIRTY).sum()))
-            for sig, cnt in zip(sigs, counts)
-        )
-        kinds = self.container_kinds[idx]
+        clean = [summ.clean[i] for i in idx if summ.clean[i].size]
+        signatures, scanned, case3 = [], 0, 0
+        if clean:
+            union = np.zeros(self.n_tiles, bool)
+            for c in clean:
+                union[c] = True
+            cls = self._classes_word[idx]
+            if not union.all():
+                cls = cls[:, np.flatnonzero(union)]
+            sigs, counts = _signature_counts(cls)
+            signatures = [
+                (int(cnt), int((sig == TILE_ONE).sum()),
+                 int((sig >= TILE_DIRTY).sum()))
+                for sig, cnt in zip(sigs, counts)
+            ]
+            scanned = cls.shape[1]
+            case3 = int((cls >= TILE_DIRTY).any(axis=0).sum())
+            _STATS_SCAN.inc()
+            _STATS_TILES_B.inc(scanned)
+        else:
+            _STATS_SUMMARY.inc()
+        rest = self.n_tiles - scanned  # tiles where every member is dirty
+        if rest:
+            signatures.append((rest, 0, int(idx.size)))
+        cont = summ.containers[idx].sum(axis=0)
         stats = MemberStats(
             n=int(idx.size),
             n_words=self.n_words,
             tile_words=self.tile_words,
-            clean_fraction=1.0 - dirty_tiles / max(cls.size, 1),
+            clean_fraction=1.0 - dirty_tiles / max(idx.size * self.n_tiles, 1),
             density=float(np.mean(dens)),
             dirty_words=dirty_tiles * self.tile_words,
-            case3_tiles=int(((cls >= TILE_DIRTY).any(axis=0)).sum()),
-            signatures=signatures,
-            container_tiles=(
-                int((kinds == CONT_DENSE).sum()),
-                int((kinds == CONT_SPARSE).sum()),
-                int((kinds == CONT_RUN).sum()),
-            ),
-            compressed_words=int(self.storage_words_cell[idx].sum()),
+            case3_tiles=rest + case3,
+            signatures=tuple(signatures),
+            container_tiles=tuple(int(x) for x in cont),
+            compressed_words=int(summ.words[idx].sum()),
         )
         self._member_stats_cache[key] = stats
         return stats

@@ -52,6 +52,12 @@ def clean_fraction_bits(n, clean_fraction, seed, n_tiles=5, tail_bits=700):
 #: and launch, and the tiled route's two device stages
 PORT_ONLY_SPANS = frozenset({"program", "launch", "events", "block"})
 
+#: metric families the port registers where the reference has none: the
+#: member-statistics pass counters of ``storage/tilestore.py``
+PORT_ONLY_FAMILIES = frozenset({
+    "repro_plan_stats_tiles_scanned_total", "repro_plan_stats_total",
+})
+
 
 def reference_view(tree, folded=None) -> tuple:
     """An untimed span tree (a ``Span`` or its ``to_dict()``) as ``(name,

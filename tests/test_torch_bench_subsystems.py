@@ -45,7 +45,7 @@ import repro.obs as robs  # noqa: E402
 import repro.search.similarity as r_similarity  # noqa: E402
 import repro_torch.obs as tobs  # noqa: E402
 import repro_torch.search.similarity as t_similarity  # noqa: E402
-from _torch_port import reference_view, u32  # noqa: E402
+from _torch_port import PORT_ONLY_FAMILIES, reference_view, u32  # noqa: E402
 
 CPU = "cpu"
 _REF: dict = {}
@@ -231,8 +231,10 @@ def _untimed(span: dict) -> tuple:
     return (span["name"], span["attrs"], [_untimed(c) for c in span["children"]])
 
 
-def _families(prom: str) -> list:
-    return sorted(line for line in prom.splitlines() if line.startswith("# TYPE "))
+def _families(prom: str, skip=frozenset()) -> list:
+    """The ``# TYPE`` lines of an export, without the families in ``skip``."""
+    return sorted(line for line in prom.splitlines()
+                  if line.startswith("# TYPE ") and line.split()[2] not in skip)
 
 
 def _capture_prometheus(monkeypatch, module, into: list) -> None:
@@ -259,7 +261,8 @@ def test_obs_trace_drift_and_exports_equal_reference(monkeypatch, tmp_path):
     want = json.loads((tmp_path / "BENCH_obs.json").read_text())
     assert data["drift_samples"] == want["drift_samples"] == TO.SMOKE["n_queries"]
     assert data["prometheus_lint_problems"] == want["prometheus_lint_problems"] == []
-    assert _families(t_prom[-1]) == _families(r_prom[-1]) and _families(t_prom[-1])
+    assert _families(t_prom[-1], PORT_ONLY_FAMILIES) == _families(r_prom[-1]) and _families(t_prom[-1])
+    assert {line.split()[2] for line in _families(t_prom[-1])} >= PORT_ONLY_FAMILIES
     last = [json.loads(p.read_text().splitlines()[-1])["last_trace"]
             for p in (tmp_path / "pt_trace.jsonl", tmp_path / "trace.jsonl")]
     folded = set()  # the port-only spans of K1 (_torch_port.PORT_ONLY_SPANS)

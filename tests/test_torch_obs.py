@@ -18,7 +18,7 @@ import pytest
 
 import repro.obs as robs
 import repro_torch.obs as obs
-from _torch_port import PORT_ONLY_SPANS, TILE_BITS, reference_view, u32
+from _torch_port import PORT_ONLY_FAMILIES, PORT_ONLY_SPANS, TILE_BITS, reference_view, u32
 from repro import query as RQ
 from repro_torch import query as TQ
 from repro_torch.convert import index_from_reference_arrays
@@ -261,10 +261,13 @@ def test_registry_isolated_instances_and_reset():
 
 def _same_families():
     """Every family the reference registers exists in the port with the same
-    type, help and labels (the port's may add none the reference lacks)."""
+    type, help and labels (the port's may add none the reference lacks but
+    ``PORT_ONLY_FAMILIES``, which the reference must not have)."""
     want = {k: (v["type"], v["help"], v["labels"]) for k, v in robs.REGISTRY.snapshot().items()}
-    got = {k: (v["type"], v["help"], v["labels"]) for k, v in obs.REGISTRY.snapshot().items()}
-    return {k: want[k] for k in got if k in want} == got and set(got) <= set(want)
+    got = {k: (v["type"], v["help"], v["labels"])
+           for k, v in obs.REGISTRY.snapshot().items() if k not in PORT_ONLY_FAMILIES}
+    return ({k: want[k] for k in got if k in want} == got and set(got) <= set(want)
+            and not PORT_ONLY_FAMILIES & set(want))
 
 
 def test_metric_families_carry_the_reference_names():
@@ -276,6 +279,7 @@ def test_metric_families_carry_the_reference_names():
                  "repro_kernel_event_toggles_total", "repro_calibration_drift_ratio",
                  "repro_query_wall_seconds", "repro_query_words_touched"):
         assert name in obs.REGISTRY.snapshot()
+    assert PORT_ONLY_FAMILIES <= set(obs.REGISTRY.snapshot())
 
 
 K1 = {"program", "launch"}  # the circuit kernel's lookup and launch

@@ -8,18 +8,22 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import clean_fraction_bits, container_mix_bits, u32
+from _torch_port import TILE_BITS, clean_fraction_bits, container_mix_bits, u32
+from repro import persist as RPersist
 from repro.core import planner as RP
 from repro.query import BitmapIndex as RIndex
 from repro.query import expr as RE
 from repro.storage import TileStore as RStore
 from repro.storage import containers as RCont
+from repro_torch import obs
+from repro_torch import persist as TPersist
 from repro_torch.core import calibration as TCal
 from repro_torch.core import planner as TP
 from repro_torch.query import BitmapIndex as TIndex
 from repro_torch.query import expr as TE
 from repro_torch.storage import TileStore as TStore
 from repro_torch.storage import containers as TCont
+from repro_torch.storage import tilestore as TTile
 
 FIXTURES = {
     "cf0.0": lambda: clean_fraction_bits(10, 0.0, seed=2),
@@ -59,13 +63,156 @@ def test_classification_and_statistics_equal_reference(name):
     assert np.array_equal(u32(tor.column(2)), np.asarray(ref.column(2)))
 
 
-@pytest.mark.parametrize("name", list(FIXTURES))
-@pytest.mark.parametrize("slots", [None, (0,), (1, 4, 7), (8, 2, 5, 3)])
-def test_member_stats_equal_reference(name, slots):
-    _bits, ref, tor = stores(name)
+def member_kinds_bits(seed=3, n_tiles=5, tail_bits=700):
+    """Ten columns over five full tiles and a partial one: 0-2 dirty in every
+    tile, 3-5 and 9 clean in some tiles, 6-8 clean in every tile (all zero;
+    ones in full tiles only; zero and one tiles in turn)."""
+    rng = np.random.default_rng(seed)
+    r = n_tiles * TILE_BITS + tail_bits
+    bits = rng.random((10, r)) < 0.35
+    bits[6:9] = False
+    for tj in range(n_tiles):
+        lo, hi = tj * TILE_BITS, (tj + 1) * TILE_BITS
+        bits[7, lo:hi] = True
+        bits[8, lo:hi] = tj % 2 == 1
+        for i, clean in ((3, tj in (1, 4)), (4, tj == 2), (5, tj in (0, 2)), (9, tj == 3)):
+            if clean:
+                bits[i, lo:hi] = (i + tj) % 2 == 1
+    bits[4, 5 * TILE_BITS:] = False  # a clean partial final tile
+    return bits
+
+
+def _kinds_pair(**kw):
+    bits = member_kinds_bits()
+    return RStore.from_dense(jnp.asarray(bits), **kw), TStore.from_dense(bits, device="cpu", **kw)
+
+
+def _updated_pair():
+    """Tile updates that clean a dirty tile, dirty a clean one and grow the
+    universe by whole zero tiles and a partial one."""
+    ref, tor = _kinds_pair()
+    rng = np.random.default_rng(4)
+    updates = {
+        0: {1: np.zeros(64, np.uint32), 3: np.full(64, 0xFFFFFFFF, np.uint32)},
+        6: {2: rng.integers(0, 2**32, 64, dtype=np.uint32)},
+        3: {1: rng.integers(0, 2**32, 64, dtype=np.uint32)},
+    }
+    r = tor.r + 2 * TILE_BITS + 100
+    return ref.apply_tile_updates(updates, r=r), tor.apply_tile_updates(updates, r=r)
+
+
+def _concat_pair():
+    ref, tor = _kinds_pair()
+    cut = [(0, 2), (2, tor.n_tiles)]
+    return (RStore.concat_tiles([ref.slice_tiles(*c) for c in cut]),
+            TStore.concat_tiles([tor.slice_tiles(*c) for c in cut]))
+
+
+def _loaded_pair(tmp):
+    ref, tor = _kinds_pair()
+    RPersist.snapshot.save(ref, tmp / "ref.bmsnap")
+    TPersist.snapshot.save(tor, tmp / "tor.bmsnap")
+    return (RPersist.snapshot.load(tmp / "ref.bmsnap"),
+            TPersist.snapshot.load(tmp / "tor.bmsnap", device="cpu"))
+
+
+#: stores whose member statistics are held to the reference's and to the
+#: full signature pass: the parity fixtures, then every way a store is made
+MEMBER_STORES = {
+    **{name: (lambda name=name: stores(name)[1:]) for name in FIXTURES},
+    "kinds": _kinds_pair,
+    "kinds-tw16": lambda: _kinds_pair(tile_words=16),
+    "kinds-tw128": lambda: _kinds_pair(tile_words=128),
+    "kinds-nocont": lambda: _kinds_pair(containers=False),
+    "kinds-updated": _updated_pair,
+    "kinds-retiled": lambda: tuple(s.with_tile_words(16) for s in _kinds_pair()),
+    "kinds-concat": _concat_pair,
+    "kinds-loaded": _loaded_pair,
+}
+_BUILT: dict = {}
+
+
+def member_stores(name, tmp_path_factory):
+    if name not in _BUILT:
+        build = MEMBER_STORES[name]
+        _BUILT[name] = build(tmp_path_factory.mktemp(name)) if name == "kinds-loaded" else build()
+    return _BUILT[name]
+
+
+def plain_member_stats(store, slots):
+    """The full signature pass over every tile of the subset: the planner's
+    statistics as the reference computes them."""
+    idx = np.arange(store.n) if slots is None else np.asarray(list(slots))
+    if idx.size == 0:
+        return TTile.MemberStats(0, store.n_words, store.tile_words, 1.0, 0.0, 0, 0)
+    cls = store.classes_word[idx]
+    dirty_tiles = int((cls >= TTile.TILE_DIRTY).sum())
+    sigs, counts = TTile._signature_counts(cls)
+    kinds = store.container_kinds[idx]
+    return TTile.MemberStats(
+        n=int(idx.size),
+        n_words=store.n_words,
+        tile_words=store.tile_words,
+        clean_fraction=1.0 - dirty_tiles / max(cls.size, 1),
+        density=float(np.mean([store.cardinalities[i] / max(store.r, 1) for i in idx])),
+        dirty_words=dirty_tiles * store.tile_words,
+        case3_tiles=int(((cls >= TTile.TILE_DIRTY).any(axis=0)).sum()),
+        signatures=tuple(
+            (int(cnt), int((sig == TTile.TILE_ONE).sum()), int((sig >= TTile.TILE_DIRTY).sum()))
+            for sig, cnt in zip(sigs, counts)
+        ),
+        container_tiles=tuple(int((kinds == k).sum()) for k in (
+            TCont.CONT_DENSE, TCont.CONT_SPARSE, TCont.CONT_RUN)),
+        compressed_words=int(store.storage_words_cell[idx].sum()),
+    )
+
+
+#: subsets: every column, one column, two mixed sets, then (on ``kinds``) all
+#: dirty, dirty and partly clean members, all clean, permuted with repeats,
+#: and empty
+MEMBER_SLOTS = [None, (0,), (1, 4, 7), (8, 2, 5, 3),
+                (0, 1, 2), (0, 4, 5), (6, 7, 8), (5, 3, 5, 0, 3), ()]
+
+
+@pytest.mark.parametrize("name", list(MEMBER_STORES))
+@pytest.mark.parametrize("slots", MEMBER_SLOTS)
+def test_member_stats_equal_reference(name, slots, tmp_path_factory):
+    ref, tor = member_stores(name, tmp_path_factory)
     a, b = tor.member_stats(slots), ref.member_stats(slots)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert dataclasses.asdict(a) == dataclasses.asdict(plain_member_stats(tor, slots))
     assert tor.member_stats(slots) is a  # cached per subset
+
+
+def _stats_counters() -> tuple:
+    snap = obs.REGISTRY.snapshot()
+    tiles = snap["repro_plan_stats_tiles_scanned_total"]["samples"]
+    passes = snap["repro_plan_stats_total"]["samples"]
+    return (sum(tiles.values()), passes.get("summary", 0), passes.get("scan", 0))
+
+
+def test_member_stats_counters_count_the_tiles_scanned():
+    """A subset of dirty columns is answered from the summaries alone; a
+    subset with clean tiles scans the union of its members' clean tiles;
+    a cache hit counts nothing."""
+    _ref, tor = _kinds_pair()
+    mixed = (0, 4, 5)
+    union = int((tor.classes_word[list(mixed)] <= TTile.TILE_ONE).any(axis=0).sum())
+    assert 0 < union < tor.n_tiles
+    obs.disable()
+    obs.reset()
+    obs.enable()
+    try:
+        tor.member_stats((2, 0, 1))
+        assert _stats_counters() == (0, 1, 0)
+        tor.member_stats(mixed)
+        assert _stats_counters() == (union, 1, 1)
+        tor.member_stats((2, 0, 1))
+        tor.member_stats(mixed)
+        assert _stats_counters() == (union, 1, 1)
+    finally:
+        obs.disable()
+        obs.reset()
 
 
 def test_containers_off_and_other_tile_sizes():
